@@ -1,0 +1,16 @@
+"""femo_alpha_tpu_torch — the PyTorch/CUDA port of femo_alpha_tpu.
+
+A second package beside the JAX one (which stays the reference): the same
+module names, PyTorch idiom inside. It imports torch and never jax. Every
+table is created with an explicit dtype (f64 by default) and every
+operation runs on the device of the tensors it is given; the two Hopper
+kernels of the solve path (assembly/cuda_kernels.py) are built by nvcc at
+first use and launched for CUDA tensors, while CPU tensors take their
+plain PyTorch twins.
+
+Ported so far: the strong-BC, structured-mesh RM-shell slice
+(`models.RMShellModel(...).evaluate` + backward of the compliance). See
+ROADMAP.md for what remains.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,144 @@
+"""Differentiable implicit PDE solve via the implicit-function theorem.
+
+Port of femo_alpha_tpu/adjoint/implicit.py::ImplicitPDE as a
+`torch.autograd.Function`:
+  forward:  assemble the operator, set up the preconditioner, solve
+  backward: solve A^T lam = g with the SAME operator and preconditioner
+            state, then vjp_params = -(dR/dparams)^T lam through the
+            assembled residual (`torch.func.vjp`)
+
+BC treatment: the residual is "constrained" (BC rows = u - u_bc); the
+linearized solve uses the symmetrically masked operator
+B = f*A*f + (1-f)*I, and lam is zeroed at BC dofs.
+
+Preconditioners take part through a split protocol:
+    prepare(params) -> aux                     (e.g. affine bases)
+    setup_state(u, params, ops_Ae, aux) -> state
+    apply_state(state, v) -> M^{-1} v
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.func import vjp
+
+from ..assembly.assemble import FemForm, assemble_residual, element_matrices
+from ..assembly.bc import constrain_residual
+from ..solvers.linear import LinearSolver
+
+
+class ImplicitPDE:
+    """A linear problem's residual (cell form) with BC data and solver
+    options; `solve(params)` is differentiable with respect to every
+    parameter tensor that requires grad.
+
+    element_matrices_fn(u, params, basis=...) -> lane-major Ae overrides
+    the generic jacfwd assembly of the operator (e.g. the affine design
+    decomposition, assembly/affine.py)."""
+
+    def __init__(self, form: FemForm, free_mask, bc_vals, solver_opts=None,
+                 element_matrices_fn=None):
+        self.form = form
+        self.n_dofs = form.space.n_dofs
+        self.free_mask = free_mask
+        self.bc_vals = bc_vals
+        self.solver_opts = dict(solver_opts or {})
+        self.element_matrices_fn = element_matrices_fn
+        self._pc = self.solver_opts.pop("precond_factory", None)
+        if self._pc is not None and not hasattr(self._pc, "setup_state"):
+            raise NotImplementedError(
+                "ImplicitPDE: only split-protocol preconditioners are "
+                "ported to femo_alpha_tpu_torch (ROADMAP.md, Queue 1)")
+        self.last_info = {}
+
+    # -------------------------------------------------- raw pieces
+    def residual(self, u, params):
+        """Constrained residual: BC rows replaced by (u - u_bc)."""
+        r = assemble_residual(self.form, u, params)
+        return constrain_residual(r, u, self.free_mask, self.bc_vals)
+
+    def _assemble_ops(self, u, params, emf_basis=None):
+        """[Ae0]: the cell operator, lane-major (nd, nd, nc)."""
+        if self.element_matrices_fn is not None:
+            return [self.element_matrices_fn(u, params, basis=emf_basis)]
+        Ae = element_matrices(self.form, u, params)
+        return [Ae.permute(1, 2, 0).contiguous()]
+
+    def _solver_from(self, ops_Ae, M_state):
+        M = None
+        if M_state is not None:
+            def M(v):
+                return self._pc.apply_state(M_state, v)
+        return LinearSolver([(ops_Ae[0], self.form.space)], self.n_dofs,
+                            free_mask=self.free_mask, M=M,
+                            **self.solver_opts)
+
+    def _prepare_aux(self, params):
+        fn = self.element_matrices_fn
+        emb = fn.prepare(params) if hasattr(fn, "prepare") else None
+        pca = self._pc.prepare(params) if self._pc is not None else ()
+        return emb, pca
+
+    def _newton_state(self, params, u0, aux):
+        """One Newton step from u0 (exact for these linear problems):
+        returns (u, linearization state) — the state is what the adjoint
+        reuses."""
+        emf_basis, pc_aux = aux
+        f = self.free_mask
+        u = f * u0 + (1.0 - f) * self.bc_vals
+        r = self.residual(u, params)
+        ops_Ae = self._assemble_ops(u, params, emf_basis=emf_basis)
+        M_state = (self._pc.setup_state(u, params, ops_Ae, pc_aux)
+                   if self._pc is not None else None)
+        solver = self._solver_from(ops_Ae, M_state)
+        u = u - solver.solve(r)
+        self.last_info["forward"] = solver.last_info
+        return u, (ops_Ae, M_state)
+
+    def _bwd_impl(self, params, u, ops_Ae, M_state, g, wrt):
+        """-(dR/dp)^T lam for the parameters named in `wrt`."""
+        solver = self._solver_from(ops_Ae, M_state)
+        lam = self.free_mask * solver.solve_transpose(self.free_mask * g)
+        self.last_info["adjoint"] = solver.last_info
+        if not wrt:
+            return {}
+        fixed = {k: v for k, v in params.items() if k not in wrt}
+
+        def res(*vals):
+            return self.residual(u, {**fixed, **dict(zip(wrt, vals))})
+
+        _, vjp_fn = vjp(res, *[params[k] for k in wrt])
+        return {k: -gk for k, gk in zip(wrt, vjp_fn(lam))}
+
+    # -------------------------------------------------- public API
+    def solve(self, params, u0=None):
+        """Differentiable solve; params: dict of parameter tensors."""
+        if u0 is None:
+            u0 = torch.zeros_like(self.free_mask)
+        keys = tuple(params)
+        with torch.no_grad():
+            aux = self._prepare_aux({k: v.detach() for k, v in
+                                     params.items()})
+        return _ImplicitSolve.apply(self, aux, keys, u0.detach(),
+                                    *[params[k] for k in keys])
+
+
+class _ImplicitSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pde, aux, keys, u0, *vals):
+        params = dict(zip(keys, vals))
+        u, state = pde._newton_state(params, u0, aux)
+        ctx.pde, ctx.keys, ctx.state = pde, keys, state
+        ctx.save_for_backward(u, *vals)
+        return u
+
+    @staticmethod
+    def backward(ctx, g):
+        u, *vals = ctx.saved_tensors
+        params = dict(zip(ctx.keys, vals))
+        need = ctx.needs_input_grad[4:]
+        wrt = [k for k, n in zip(ctx.keys, need) if n]
+        with torch.no_grad():
+            gp = ctx.pde._bwd_impl(params, u, *ctx.state, g, wrt)
+        return (None, None, None, None,
+                *[gp.get(k) for k in ctx.keys])

@@ -1,0 +1,153 @@
+"""Geometric-multigrid hierarchy construction for RM shells on structured
+meshes.
+
+Port of femo_alpha_tpu/models/rm_shell/mg.py: re-discretizes the shell PDE
+on a nested StructuredQuadMesh hierarchy, coarsens the parameter fields by
+space kind (DG0 cell means, CG1 vertex injection), and re-assembles each
+level per design through its own affine basis (h*M1 + h^3*M3, the K2
+combine). Every level is lane-major, so each smoother step and residual
+runs through the K1 per-cell matvec.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...assembly.affine import CachedAffineAssembler
+from ...assembly.assemble import make_matvec_T
+from ...assembly.bc import DirichletBC, combine_bcs, constrain_matvec
+from ...solvers.multigrid import GeometricMG
+from ...spaces import locate_dofs_geometric
+
+
+def _coarsen_dg0(a, nx, ny, vs):
+    return a.reshape(nx // 2, 2, ny // 2, 2, vs).mean(dim=(1, 3)).reshape(-1)
+
+
+def _coarsen_cg1(a, nx, ny, vs):
+    return a.reshape(nx + 1, ny + 1, vs)[::2, ::2].reshape(-1)
+
+
+def _field_coarsener(space, nx, ny):
+    vs = space.value_size
+    if space.family == "DG" and space.degree == 0:
+        return lambda a: _coarsen_dg0(a, nx, ny, vs)
+    if space.degree == 1:
+        return lambda a: _coarsen_cg1(a, nx, ny, vs)
+    raise ValueError(f"no coarsener for {space.family}{space.degree}")
+
+
+def strong_bc_dofs(pde, bc_func):
+    """Mixed-space dofs (disp and rot) whose coordinates satisfy bc_func."""
+    d1 = locate_dofs_geometric(pde.V_disp, bc_func)
+    d2 = locate_dofs_geometric(pde.V_rot, bc_func)
+    return np.concatenate([d1, d2 + pde.V_disp.n_dofs])
+
+
+def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
+                   lmin_ratio=0.06, asm_chunk=8192, device=None):
+    """GeometricMG (f64) for an RMShellPDE on a StructuredQuadMesh, or None
+    when the mesh cannot be coarsened at least once (odd dims / already
+    small). device: where the level masks live (the solve's device)."""
+    from ...mesh import StructuredQuadMesh
+    from .pde import RMShellPDE
+
+    mesh = pde.mesh
+    if not getattr(mesh, "structured", False):
+        return None
+    if not pde.element_wise_material:
+        raise NotImplementedError(
+            "build_shell_mg: the non-affine (nodal thickness) hierarchy is "
+            "not ported to femo_alpha_tpu_torch yet (ROADMAP.md, Queue 1)")
+    c = np.asarray(mesh.coords)
+    p0 = (float(c[:, 0].min()), float(c[:, 1].min()))
+    p1 = (float(c[:, 0].max()), float(c[:, 1].max()))
+
+    def build_level(nx_k, ny_k):
+        mesh_k = StructuredQuadMesh(nx_k, ny_k, p0, p1, gdim=mesh.gdim)
+        pde_k = RMShellPDE(
+            mesh_k, element_wise_material=pde.element_wise_material,
+            elementwise_pressure=pde.elementwise_pressure,
+            inplane_deg=pde.inplane_deg, shear_deg=pde.shear_deg,
+            device=device)
+        free_k, _ = combine_bcs(
+            pde_k.W.n_dofs, [DirichletBC(strong_bc_dofs(pde_k, bc_func))],
+            dtype=torch.float64, device=device)
+        return pde_k, free_k
+
+    def can_coarsen(nx_k, ny_k):
+        return (nx_k % 2 == 0 and ny_k % 2 == 0
+                and (nx_k // 2) * (ny_k // 2) >= coarsest_cells)
+
+    if not can_coarsen(mesh.nx, mesh.ny):
+        return None
+
+    levels = []
+    nx_k, ny_k = mesh.nx, mesh.ny
+    pde_k, free_k = build_level(nx_k, ny_k)
+    while True:
+        # verify=False: these bases only feed the V-cycle (preconditioner
+        # quality, not solution accuracy); the fine operator's basis in
+        # RMShellModel keeps its verify
+        asm_k = CachedAffineAssembler(pde_k.make_residual_form(),
+                                      chunk=asm_chunk, verify=False)
+
+        def make_Ae(p, asm_k=asm_k):
+            q = {k: v for k, v in p.items() if k != "_affine_basis"}
+            return asm_k(None, q, basis=p.get("_affine_basis"))
+
+        lev = {"space": pde_k.W, "free": free_k, "affine_asm": asm_k,
+               "make_Ae": make_Ae}
+        levels.append(lev)
+        if not can_coarsen(nx_k, ny_k):
+            break
+        cT = _field_coarsener(pde_k.VT, nx_k, ny_k)
+        cF = _field_coarsener(pde_k.VF, nx_k, ny_k)
+        cU = _field_coarsener(pde_k.VU, nx_k, ny_k)
+
+        def coarsen(p, cT=cT, cF=cF, cU=cU):
+            return {"thickness": cT(p["thickness"]), "E": cT(p["E"]),
+                    "nu": cT(p["nu"]), "uhat": cU(p["uhat"]),
+                    "F_solid": torch.zeros_like(cF(p["F_solid"]))}
+
+        lev["coarsen"] = coarsen
+        nx_k, ny_k = nx_k // 2, ny_k // 2
+        pde_k, free_k = build_level(nx_k, ny_k)
+
+    def constrained_mv(Ae, space, free_mask):
+        return constrain_matvec(make_matvec_T(Ae, space), free_mask)
+
+    return GeometricMG(levels, constrained_mv, degree=degree,
+                       lmin_ratio=lmin_ratio)
+
+
+class ShellMGPrecond:
+    """Split-protocol preconditioner for ImplicitPDE: `prepare` builds (or
+    reuses) the per-level affine bases, `setup_state` makes the V-cycle
+    state for the current design, `apply_state` applies one V-cycle. The
+    forward solve's state is reused by the adjoint solve."""
+
+    _KEYS = ("thickness", "E", "nu", "uhat", "F_solid")
+
+    def __init__(self, mg: GeometricMG):
+        self.mg = mg
+
+    def prepare(self, params):
+        """Per-level affine bases. Level 0's entry is None: setup_state
+        always hands the hierarchy the fine operator itself (Ae0), so the
+        fine level never re-assembles from a basis of its own."""
+        p = {k: params[k] for k in self._KEYS if k in params}
+        bases = []
+        for k, lev in enumerate(self.mg.levels):
+            bases.append(None if k == 0 else lev["affine_asm"].prepare(p))
+            if "coarsen" in lev:
+                p = lev["coarsen"](p)
+        return tuple(bases)
+
+    def setup_state(self, u, params, ops_Ae, aux):
+        p = {k: params[k] for k in self._KEYS if k in params}
+        return self.mg.setup(p, Ae0=ops_Ae[0], bases=aux if aux else None)
+
+    def apply_state(self, state, v):
+        return self.mg.apply(state, v)

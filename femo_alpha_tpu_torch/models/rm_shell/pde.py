@@ -1,0 +1,260 @@
+"""Reissner-Mindlin shell PDE: energy kernels and output forms.
+
+Port of femo_alpha_tpu/models/rm_shell/pde.py (mixed CG2(vec3) x CG1(vec3)
+space, MID reference plane, isotropic material):
+
+- energy = membrane + bending + shear + drilling - load work; the residual
+  is torch.func.grad of the cell energy
+- shape derivatives flow through the mesh-motion field uhat: gradients are
+  pulled back by inv(I + grad uhat) and measures carry det(I + grad uhat);
+  shear/drilling/load/outputs carry J, membrane+bending do not (parity
+  with the reference's measure placement)
+
+Penalty BCs, stress recovery, the force-to-pressure map, the BOT reference
+plane and composite laminates are not ported yet (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...assembly.assemble import FemForm
+from ...elements import tabulate
+from ...elements.quadrature import quadrature_rule
+from ...spaces import FunctionSpace, MixedSpace
+from .kinematics import (
+    cell_diameter,
+    cross,
+    deformation,
+    phys_grad_table,
+    surface_geometry,
+    sym2,
+    voigt2d,
+)
+from .material import single_layer_clt
+
+
+def _not_ported(what):
+    return NotImplementedError(
+        f"{what} is not ported to femo_alpha_tpu_torch yet (ROADMAP.md, "
+        "Queue 1)")
+
+
+def _interp(space, phi, vals):
+    """Pointwise interpolation of a scalar parameter: DG0 -> the cell
+    constant; CG1 -> nodal interpolation with the CG1 table."""
+    if space.family == "DG" and space.degree == 0:
+        return vals[0].expand(phi.shape[0])
+    return phi @ vals
+
+
+def _interp_vec(space, phi, vals, vs=3):
+    if space.family == "DG" and space.degree == 0:
+        return vals.reshape(1, vs).expand(phi.shape[0], vs)
+    return phi @ vals.reshape(-1, vs)
+
+
+class RMShellPDE:
+    """Spaces + kernels for the RM shell (CG2CG1 elements)."""
+
+    def __init__(self, mesh, element_wise_material=False,
+                 elementwise_pressure=False, element_type="CG2CG1",
+                 inplane_deg=4, shear_deg=4, composite=None,
+                 device=None):
+        if element_type != "CG2CG1":
+            raise _not_ported(f"element_type={element_type!r}")
+        if composite is not None:
+            raise _not_ported("composite_clt")
+        self.mesh = mesh
+        self.element_wise_material = element_wise_material
+        self.elementwise_pressure = elementwise_pressure
+        self.V_disp = FunctionSpace(mesh, "P", 2, value_size=3)
+        self.V_rot = FunctionSpace(mesh, "P", 1, value_size=3)
+        self.inplane_deg, self.shear_deg = inplane_deg, shear_deg
+        self.W = MixedSpace(self.V_disp, self.V_rot)
+        self.VT = FunctionSpace(mesh, "DG" if element_wise_material else "P",
+                                0 if element_wise_material else 1)
+        self.VF = FunctionSpace(mesh, "DG" if elementwise_pressure else "P",
+                                0 if elementwise_pressure else 1,
+                                value_size=3)
+        self.VU = FunctionSpace(mesh, "P", 1, value_size=3)
+        self.nd_disp = self.V_disp.element.ndof
+        self.nd_rot = self.V_rot.element.ndof
+        self.nv = mesh.conn.shape[1]
+
+        # tables per rule (disp/rot/thickness/force bases tabulated at
+        # shared points), made once here: the kernels run inside
+        # torch.func transforms, which must not create cached tensors
+        ct = mesh.cell_type
+        self._rules = {}
+        for name, deg in [("inplane", inplane_deg), ("shear", shear_deg)]:
+            pts, w = quadrature_rule(ct, deg)
+            tab_d = tabulate("P", ct, 2, points=pts, weights=w)
+            tab_r = tabulate("P", ct, 1, points=pts, weights=w)
+            tab_t = tabulate(self.VT.family, ct, self.VT.degree, points=pts,
+                             weights=w)
+            tab_f = tabulate(self.VF.family, ct, self.VF.degree, points=pts,
+                             weights=w)
+            tabs = dict(d_phi=tab_d.phi, d_dphi=tab_d.dphi,
+                        geom_dphi=tab_d.geom_dphi, r_phi=tab_r.phi,
+                        r_dphi=tab_r.dphi, t_phi=tab_t.phi, f_phi=tab_f.phi,
+                        w=np.asarray(w))
+            self._rules[name] = {
+                k: torch.as_tensor(v, dtype=torch.float64, device=device)
+                for k, v in tabs.items()}
+        self.param_specs = {"thickness": self.VT, "E": self.VT,
+                            "nu": self.VT, "uhat": self.VU,
+                            "F_solid": self.VF}
+
+    # ---------------------------------------------------------------- core
+    def _split(self, u_cell):
+        nd2, nd1 = self.nd_disp, self.nd_rot
+        ud = u_cell[: nd2 * 3].reshape(nd2, 3)
+        th = u_cell[nd2 * 3: nd2 * 3 + nd1 * 3].reshape(nd1, 3)
+        return ud, th
+
+    def _pointwise(self, rule, u_cell, x_cell, p, need_f=False):
+        """Shared per-quadrature-point fields for one rule."""
+        R = self._rules[rule]
+        ud, th = self._split(u_cell)
+        uhat = p["uhat"].reshape(self.nv, 3)
+        geo = surface_geometry(x_cell, R["geom_dphi"])
+        dphi_d = phys_grad_table(R["d_dphi"], geo["Pi"])  # (nq, nd2, 3)
+        dphi_r = phys_grad_table(R["r_dphi"], geo["Pi"])
+        dphi_g = phys_grad_table(R["geom_dphi"], geo["Pi"])
+        F, Finv, detF = deformation(uhat, dphi_g)
+        Gu = torch.einsum("ai,qag->qig", ud, dphi_d)
+        gradx_u = torch.einsum("qig,qgh->qih", Gu, Finv)
+        Gth = torch.einsum("ai,qag->qig", th, dphi_r)
+        gradx_th = torch.einsum("qig,qgh->qih", Gth, Finv)
+        th_q = R["r_phi"] @ th  # (nq, 3)
+        u_q = R["d_phi"] @ ud
+        T = torch.stack([geo["E0"], geo["E1"]], dim=1)  # (nq, 2, 3)
+        out = dict(
+            geo=geo, detF=detF, Finv=Finv, T=T, E2=geo["E2"],
+            gradx_u=gradx_u, gradx_th=gradx_th, th_q=th_q, u_q=u_q,
+            tq=_interp(self.VT, R["t_phi"], p["thickness"]),
+            Eq=_interp(self.VT, R["t_phi"], p["E"]),
+            nuq=_interp(self.VT, R["t_phi"], p["nu"]),
+            w=R["w"], dA=geo["dA"],
+        )
+        if need_f:
+            out["f_q"] = _interp_vec(self.VF, R["f_phi"], p["F_solid"])
+        return out
+
+    def _clt(self, pt):
+        return single_layer_clt(pt["Eq"], pt["nuq"], pt["tq"])
+
+    @staticmethod
+    def _strains(pt):
+        """(eps, kappa, gamma, t_gu) in the local frame."""
+        T, E2 = pt["T"], pt["E2"]
+        gradx_u, gradx_th, th_q = pt["gradx_u"], pt["gradx_th"], pt["th_q"]
+        t_gu = torch.einsum("qik,qkl,qjl->qij", T, gradx_u, T)
+        # grad(E2 x theta) ~ E2 x grad(theta) column-wise
+        gradphi = cross(E2[:, :, None], gradx_th, dim=1)
+        kappa = sym2(torch.einsum("qik,qkl,qjl->qij", T, gradphi, T))
+        eps = sym2(t_gu)
+        # transverse shear gamma[i] = (T(-E2 x th))_i + (T (gradx_u^T E2))_i
+        du2 = -cross(E2, th_q)
+        g1 = torch.einsum("qij,qj->qi", T, du2)
+        g2 = torch.einsum("qij,qj->qi", T,
+                          torch.einsum("qk,qkj->qj", E2, gradx_u))
+        return eps, kappa, g1 + g2, t_gu
+
+    # ------------------------------------------------------------- energies
+    def make_elastic_energy_kernel(self, with_load=True, with_drilling=True):
+        """Cell energy kernel (inplane + shear + drilling [- load])."""
+
+        def energy(u_cell, x_cell, p):
+            # membrane + bending at the inplane rule (no detF)
+            pi = self._pointwise("inplane", u_cell, x_cell, p,
+                                 need_f=with_load)
+            eps, kappa, _, t_gu = self._strains(pi)
+            A, B, D, _ = self._clt(pi)
+            ev = voigt2d(eps)
+            kv = voigt2d(kappa)
+            N = torch.einsum("qij,qj->qi", A, ev) + torch.einsum(
+                "qij,qj->qi", B, kv)
+            M = torch.einsum("qij,qj->qi", B, ev) + torch.einsum(
+                "qij,qj->qi", D, kv)
+            wdA = pi["w"] * pi["dA"]
+            total = torch.sum(0.5 * torch.sum(N * ev + M * kv, dim=1) * wdA)
+            if with_drilling:
+                # strain = skew(t_gu) + theta.E2, alpha = E h^3 / h_mesh^2
+                h_mesh = cell_diameter(x_cell)
+                dstrain = 0.5 * (t_gu[:, 0, 1] - t_gu[:, 1, 0]) + torch.sum(
+                    pi["th_q"] * pi["E2"], dim=1)
+                alpha = pi["Eq"] * pi["tq"] ** 3
+                total = total + torch.sum(
+                    0.5 * alpha * dstrain ** 2 / h_mesh ** 2 * pi["detF"]
+                    * wdA)
+            if with_load:
+                total = total - torch.sum(
+                    torch.sum(pi["f_q"] * pi["u_q"], dim=1) * pi["detF"]
+                    * wdA)
+            # shear at the shear rule, with detF
+            ps = self._pointwise("shear", u_cell, x_cell, p)
+            _, _, gamma, _ = self._strains(ps)
+            As_s = self._clt(ps)[3]
+            Q = torch.einsum("qij,qj->qi", As_s, gamma)
+            E_sh = torch.sum(0.5 * torch.sum(Q * gamma, dim=1) * ps["detF"]
+                             * ps["w"] * ps["dA"])
+            return total + E_sh
+
+        return energy
+
+    def make_residual_form(self):
+        return FemForm(self.W, self.make_elastic_energy_kernel(),
+                       kind="energy", param_specs=dict(self.param_specs))
+
+    # ------------------------------------------------------------- outputs
+    def regularization_kernel(self):
+        """L2 thickness regularization 0.5e-2 int h^2 dx (element-wise
+        thickness; the H1 form of nodal thickness is not ported)."""
+        alpha1 = 1e-2
+
+        def kern(u_cell, x_cell, p):
+            R = self._rules["inplane"]
+            geo = surface_geometry(x_cell, R["geom_dphi"])
+            hq = _interp(self.VT, R["t_phi"], p["thickness"])
+            return torch.sum(0.5 * alpha1 * hq ** 2 * R["w"] * geo["dA"])
+
+        return kern
+
+    def compliance_form(self):
+        """int |u_mid|^2 J(uhat) dx + regularization."""
+        if not self.element_wise_material:
+            raise _not_ported("the H1 regularization of nodal thickness")
+        reg = self.regularization_kernel()
+        nv = self.nv
+
+        def kern(u_cell, x_cell, p):
+            R = self._rules["inplane"]
+            ud, _ = self._split(u_cell)
+            geo = surface_geometry(x_cell, R["geom_dphi"])
+            dphi_g = phys_grad_table(R["geom_dphi"], geo["Pi"])
+            _, _, detF = deformation(p["uhat"].reshape(nv, 3), dphi_g)
+            u_q = R["d_phi"] @ ud
+            val = torch.sum(torch.sum(u_q ** 2, dim=1) * detF * R["w"]
+                            * geo["dA"])
+            return val + reg(u_cell, x_cell, p)
+
+        return FemForm(self.W, kern, kind="energy",
+                       param_specs={"thickness": self.VT, "uhat": self.VU})
+
+    def mass_form(self):
+        """int rho h J(uhat) dx, with the thickness as primary argument."""
+
+        def kern(h_cell, x_cell, p):
+            R = self._rules["inplane"]
+            geo = surface_geometry(x_cell, R["geom_dphi"])
+            dphi_g = phys_grad_table(R["geom_dphi"], geo["Pi"])
+            _, _, detF = deformation(p["uhat"].reshape(self.nv, 3), dphi_g)
+            hq = _interp(self.VT, R["t_phi"], h_cell)
+            rhoq = _interp(self.VT, R["t_phi"], p["density"])
+            return torch.sum(rhoq * hq * detF * R["w"] * geo["dA"])
+
+        return FemForm(self.VT, kern, kind="energy",
+                       param_specs={"density": self.VT, "uhat": self.VU})

@@ -1,0 +1,272 @@
+"""Function spaces: dofmaps, dof coordinates and cell gather/scatter.
+
+Port of femo_alpha_tpu/spaces/space.py. Dofmaps are built once in numpy;
+the per-cell gather/scatter run on whatever device the vector lives on.
+
+Local dof ordering inside a cell:
+  scalar: [vertex dofs (element order), edge dofs, cell dofs]
+  vector (value_size=vs): interleaved — local index a*vs + c for scalar
+  dof a, component c; globally dof = scalar_dof*vs + c.
+
+Every scatter is written as the explicit adjoint stencil of its gather
+(slice-adds into a fresh tensor, or `index_add_`), never derived by
+transposing the gather through autograd: the JAX package found its derived
+transposes miscompiled at large grids (femo_alpha_tpu/spaces/space.py
+scatter_add_T), so the port keeps the hand-written form.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..elements import reference_element
+from ..mesh import Mesh
+
+
+def _build_scalar_dofmap(mesh: Mesh, elem):
+    """Returns (dofmap (n_cells, nd) int32, n_scalar_dofs)."""
+    nv_d, ne_d, nc_d = elem.entity_dofs
+    mesh._build_topology()
+    cols = []
+    n_local_vertices = mesh.conn.shape[1]
+    if nv_d > 0:
+        for v in range(n_local_vertices):
+            for k in range(nv_d):
+                cols.append(nv_d * mesh.conn[:, v] + k)
+    off_e = nv_d * mesh.n_nodes
+    if ne_d > 0:
+        for e in range(mesh.cell_edges.shape[1]):
+            for k in range(ne_d):
+                cols.append(off_e + ne_d * mesh.cell_edges[:, e] + k)
+    off_c = off_e + ne_d * mesh.n_edges
+    if nc_d > 0:
+        cid = np.arange(mesh.n_cells)
+        for k in range(nc_d):
+            cols.append(off_c + nc_d * cid + k)
+    dofmap = np.stack(cols, axis=1).astype(np.int32)
+    n_dofs = off_c + nc_d * mesh.n_cells
+    assert dofmap.shape[1] == elem.ndof, (dofmap.shape, elem.ndof)
+    return dofmap, n_dofs
+
+
+class _StructuredLayout:
+    """Slice gathers and slice-add scatters for grid-ordered dofs on a
+    StructuredQuadMesh (mesh/structured.py), in the cell-major (nc, nd)
+    and lane-major (nd, nc) layouts.
+
+    `parts(x)` returns the per-local-node (nx, ny, vs) views of a global
+    vector; `accumulate(g)` is its exact adjoint: it adds each local
+    node's (nx, ny, vs) block back onto the dof grids."""
+
+    def __init__(self, mesh, family, degree, vs):
+        self.nx, self.ny, self.vs = mesh.nx, mesh.ny, vs
+        self.kind = None
+        if family in ("P", "CG", "Lagrange", "Q") and degree in (1, 2):
+            self.kind = f"P{degree}"
+            self.nloc = 4 if degree == 1 else 9
+        elif family == "DG" and degree in (0, 1):
+            self.kind = "DG"
+            self.nloc = 1 if degree == 0 else 4
+
+    def parts(self, x):
+        nx, ny, vs = self.nx, self.ny, self.vs
+        if self.kind == "DG":
+            return [x.reshape(nx, ny, self.nloc, vs)[:, :, a]
+                    for a in range(self.nloc)]
+        nV = (nx + 1) * (ny + 1) * vs
+        V = x[:nV].reshape(nx + 1, ny + 1, vs)
+        out = [V[:-1, :-1], V[1:, :-1], V[1:, 1:], V[:-1, 1:]]
+        if self.kind == "P2":
+            nEX = nx * (ny + 1) * vs
+            nEY = (nx + 1) * ny * vs
+            EX = x[nV:nV + nEX].reshape(nx, ny + 1, vs)
+            EY = x[nV + nEX:nV + nEX + nEY].reshape(nx + 1, ny, vs)
+            C = x[nV + nEX + nEY:].reshape(nx, ny, vs)
+            out += [EX[:, :-1], EY[1:, :], EX[:, 1:], EY[:-1, :], C]
+        return out
+
+    def accumulate(self, g):
+        """Adjoint of `parts`: g (nloc, nx, ny, vs) -> (n_dofs,)."""
+        nx, ny, vs = self.nx, self.ny, self.vs
+        if self.kind == "DG":
+            return g.permute(1, 2, 0, 3).reshape(-1)
+        V = g.new_zeros((nx + 1, ny + 1, vs))
+        V[:-1, :-1] += g[0]
+        V[1:, :-1] += g[1]
+        V[1:, 1:] += g[2]
+        V[:-1, 1:] += g[3]
+        if self.kind == "P1":
+            return V.reshape(-1)
+        EX = g.new_zeros((nx, ny + 1, vs))
+        EX[:, :-1] += g[4]
+        EX[:, 1:] += g[6]
+        EY = g.new_zeros((nx + 1, ny, vs))
+        EY[1:, :] += g[5]
+        EY[:-1, :] += g[7]
+        return torch.cat([V.reshape(-1), EX.reshape(-1), EY.reshape(-1),
+                          g[8].reshape(-1)])
+
+    def gather(self, x):
+        nc = self.nx * self.ny
+        return torch.stack(self.parts(x), dim=2).reshape(
+            nc, self.nloc * self.vs)
+
+    def scatter(self, cv):
+        g = cv.reshape(self.nx, self.ny, self.nloc, self.vs)
+        return self.accumulate(g.permute(2, 0, 1, 3))
+
+    def gather_T(self, x):
+        G = torch.stack(self.parts(x), dim=0)  # (nloc, nx, ny, vs)
+        return G.permute(0, 3, 1, 2).reshape(
+            self.nloc * self.vs, self.nx * self.ny)
+
+    def scatter_T(self, cvT):
+        g = cvT.reshape(self.nloc, self.vs, self.nx, self.ny)
+        return self.accumulate(g.permute(0, 2, 3, 1))
+
+
+class FunctionSpace:
+    """A (possibly vector-valued) finite element space on a mesh."""
+
+    def __init__(self, mesh: Mesh, family: str, degree: int,
+                 value_size: int = 1):
+        self.mesh = mesh
+        self.family = family
+        self.degree = degree
+        self.value_size = value_size
+        self.element = reference_element(family, mesh.cell_type, degree)
+        self.scalar_dofmap, self.n_scalar_dofs = _build_scalar_dofmap(
+            mesh, self.element)
+        self.n_dofs = self.n_scalar_dofs * value_size
+        self.nd_local = self.element.ndof * value_size
+        if value_size == 1:
+            self.dofmap = self.scalar_dofmap
+        else:
+            vs = value_size
+            self.dofmap = (
+                self.scalar_dofmap[:, :, None] * vs
+                + np.arange(vs)[None, None, :]
+            ).reshape(mesh.n_cells, -1).astype(np.int32)
+        self._dof_coords = None
+        self._layout = None
+        if getattr(mesh, "structured", False):
+            lay = _StructuredLayout(mesh, family, degree, value_size)
+            if lay.kind is not None:
+                self._layout = lay
+        self._index_cache = {}
+
+    def _dofmap_on(self, device):
+        key = str(device)
+        idx = self._index_cache.get(key)
+        if idx is None:
+            idx = self._index_cache[key] = torch.as_tensor(
+                self.dofmap, dtype=torch.int64, device=device)
+        return idx
+
+    # ------------------------------------------------- gather/scatter
+    def gather(self, x):
+        """(n_dofs,) -> (nc, nd_local) cell-dof values."""
+        if self._layout is not None:
+            return self._layout.gather(x)
+        return x[self._dofmap_on(x.device)]
+
+    def scatter_add(self, cell_vals):
+        """(nc, nd_local) -> (n_dofs,) scatter-add."""
+        if self._layout is not None:
+            return self._layout.scatter(cell_vals)
+        idx = self._dofmap_on(cell_vals.device).reshape(-1)
+        out = cell_vals.new_zeros(self.n_dofs)
+        return out.index_add(0, idx, cell_vals.reshape(-1))
+
+    def gather_T(self, x):
+        """(n_dofs,) -> (nd_local, nc) lane-major cell-dof values."""
+        if self._layout is not None:
+            return self._layout.gather_T(x)
+        return self.gather(x).T.contiguous()
+
+    def scatter_add_T(self, cell_vals_T):
+        """(nd_local, nc) -> (n_dofs,): the exact adjoint of gather_T."""
+        if self._layout is not None:
+            return self._layout.scatter_T(cell_vals_T)
+        return self.scatter_add(cell_vals_T.T)
+
+    # ------------------------------------------------------------- coords
+    @property
+    def dof_coords(self):
+        """(n_scalar_dofs, gdim) physical coordinates of each scalar dof."""
+        if self._dof_coords is None:
+            elem = self.element
+            geom = reference_element("P", self.mesh.cell_type, 1)
+            gphi = geom.tabulate(elem.node_coords, 0)  # (nd, nv)
+            pos = np.einsum("ab,cbg->cag", gphi, self.mesh.cell_coords())
+            coords = np.zeros((self.n_scalar_dofs, self.mesh.gdim))
+            coords[self.scalar_dofmap.ravel()] = pos.reshape(
+                -1, self.mesh.gdim)
+            self._dof_coords = coords
+        return self._dof_coords
+
+    def __repr__(self):
+        return (f"FunctionSpace({self.element.name}, vs={self.value_size}, "
+                f"ndofs={self.n_dofs})")
+
+
+class MixedSpace:
+    """Concatenation of function spaces (e.g. RM shell: CG2 vec3 x CG1 vec3).
+
+    Global vector = [sub0 dofs | sub1 dofs | ...]; per-cell local dofs are
+    the concatenation of each sub's local dofs."""
+
+    def __init__(self, *subspaces: FunctionSpace):
+        self.subspaces = list(subspaces)
+        self.mesh = subspaces[0].mesh
+        self.offsets = np.cumsum([0] + [s.n_dofs for s in self.subspaces])
+        self.n_dofs = int(self.offsets[-1])
+        self.nd_local = sum(s.nd_local for s in self.subspaces)
+        maps = [s.dofmap + off
+                for s, off in zip(self.subspaces, self.offsets[:-1])]
+        self.dofmap = np.concatenate(maps, axis=1).astype(np.int32)
+        self.local_slices = []
+        o = 0
+        for s in self.subspaces:
+            self.local_slices.append(slice(o, o + s.nd_local))
+            o += s.nd_local
+
+    def split(self, x):
+        """Split a global mixed vector into per-subspace vectors."""
+        return [x[int(self.offsets[i]): int(self.offsets[i + 1])]
+                for i in range(len(self.subspaces))]
+
+    def gather(self, x):
+        return torch.cat([s.gather(xi) for s, xi in
+                          zip(self.subspaces, self.split(x))], dim=1)
+
+    def scatter_add(self, cell_vals):
+        return torch.cat([s.scatter_add(cell_vals[:, sl]) for s, sl in
+                          zip(self.subspaces, self.local_slices)])
+
+    def gather_T(self, x):
+        """(n_dofs,) -> (nd_local, nc) lane-major cell-dof values."""
+        return torch.cat([s.gather_T(xi) for s, xi in
+                          zip(self.subspaces, self.split(x))], dim=0)
+
+    def scatter_add_T(self, cell_vals_T):
+        """(nd_local, nc) -> (n_dofs,) lane-major scatter-add."""
+        return torch.cat([s.scatter_add_T(cell_vals_T[sl]) for s, sl in
+                          zip(self.subspaces, self.local_slices)])
+
+
+def locate_dofs_geometric(space: FunctionSpace, predicate, component=None):
+    """Global dof indices whose coordinates satisfy `predicate(coords)->bool`.
+
+    Parity with dolfinx locate_dofs_geometrical. `component=None` selects
+    all value components; an int selects one."""
+    mask = np.asarray(predicate(space.dof_coords)).astype(bool)
+    scalar_dofs = np.where(mask)[0]
+    vs = space.value_size
+    if vs == 1:
+        return scalar_dofs.astype(np.int32)
+    if component is None:
+        return (scalar_dofs[:, None] * vs + np.arange(vs)[None, :]).reshape(
+            -1).astype(np.int32)
+    return (scalar_dofs * vs + component).astype(np.int32)

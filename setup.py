@@ -7,8 +7,13 @@ setup(
         "TPU-native differentiable FEM + adjoint-optimization framework "
         "(capability parity with LSDOlab/femo_alpha)"
     ),
-    packages=find_packages(include=["femo_alpha_tpu", "femo_alpha_tpu.*"]),
-    package_data={"femo_alpha_tpu.native": ["meshops.cpp"]},
+    packages=find_packages(include=["femo_alpha_tpu", "femo_alpha_tpu.*",
+                                    "femo_alpha_tpu_torch",
+                                    "femo_alpha_tpu_torch.*"]),
+    package_data={"femo_alpha_tpu.native": ["meshops.cpp"],
+                  "femo_alpha_tpu_torch.assembly": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "scipy"],
+    # femo_alpha_tpu_torch (the PyTorch/CUDA port) needs torch instead of jax
+    extras_require={"torch": ["torch"]},
 )

@@ -1,0 +1,112 @@
+"""Tests of femo_alpha_tpu_torch that need a CUDA card: the two Hopper
+kernels against their plain twins, the launch counters, and the slice on
+the card against the same slice on the CPU. They skip without a card. The
+file imports no jax, so on a machine without the JAX package it runs on
+its own:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from femo_alpha_tpu_torch.assembly import cuda_kernels as ck
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rel(a, b):
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-14)])
+@pytest.mark.parametrize("nd,nc", [(39, 4096), (12, 1000), (3, 65536)])
+def test_k1_matches_twin(cuda, dtype, bar, nd, nc):
+    A = torch.randn((nd, nd, nc), generator=cuda, device="cuda", dtype=dtype)
+    x = torch.randn((nd, nc), generator=cuda, device="cuda", dtype=dtype)
+    assert _rel(ck.cell_matvec_T(A, x), ck.cell_matvec_T_plain(A, x)) <= bar
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-15)])
+def test_k2_matches_twin(cuda, dtype, bar):
+    B = torch.randn((2, 39, 39, 1000), generator=cuda, device="cuda",
+                    dtype=dtype)
+    th = 0.1 + 0.2 * torch.rand((1000,), generator=cuda, device="cuda",
+                                dtype=dtype)
+    out = ck.affine_combine(B, th, (1, 3))
+    assert _rel(out, ck.affine_combine_plain(B, th, (1, 3))) <= bar
+
+
+def test_k2_backward_matches_twin_autograd(cuda):
+    B = torch.randn((2, 39, 39, 256), generator=cuda, device="cuda",
+                    dtype=torch.float64)
+    th = 0.1 + 0.2 * torch.rand((256,), generator=cuda, device="cuda",
+                                dtype=torch.float64)
+    G = torch.randn((39, 39, 256), generator=cuda, device="cuda",
+                    dtype=torch.float64)
+    t1 = th.clone().requires_grad_(True)
+    (g1,) = torch.autograd.grad(ck.affine_combine(B, t1, (1, 3)), t1, G)
+    t2 = th.clone().requires_grad_(True)
+    (g2,) = torch.autograd.grad(ck.affine_combine_plain(B, t2, (1, 3)), t2,
+                                G)
+    assert _rel(g1, g2) <= 1e-12
+
+
+def test_launches_are_counted(cuda):
+    A = torch.randn((3, 3, 100), generator=cuda, device="cuda",
+                    dtype=torch.float64)
+    x = torch.randn((3, 100), generator=cuda, device="cuda",
+                    dtype=torch.float64)
+    ck.reset_launch_counts()
+    ck.cell_matvec_T(A, x)
+    ck.affine_combine(A[None], x[0], (1,))
+    ck.cell_matvec_T_plain(A, x)
+    assert ck.launch_counts() == {"cell_matvec_T": 1, "affine_combine": 1}
+
+
+def test_slice_on_card_matches_cpu(cuda):
+    from femo_alpha_tpu_torch.mesh import createRectangleMesh
+    from femo_alpha_tpu_torch.models import RMShellModel
+
+    mesh = createRectangleMesh(64, 16, (0, 0), (10.0, 2.0), "quad", gdim=3)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = RMShellModel(mesh, shell_bc_func=lambda x: x[:, 0] < 1e-12,
+                             element_wise_material=True, PENALTY_BC=False,
+                             device=dev)
+        kw = dict(dtype=torch.float64, device=dev)
+        f = torch.zeros(3 * mesh.n_nodes, **kw)
+        f[2::3] = 2.0
+        th = torch.full((mesh.n_cells,), 0.2, **kw).requires_grad_(True)
+        if dev == "cpu":
+            # card tensors into a CPU-built model raise, never move
+            with pytest.raises(ValueError, match="device="):
+                model.evaluate(f.cuda(), th.detach().cuda(),
+                               torch.full_like(th, 4.32e8).detach().cuda(),
+                               torch.zeros_like(th).detach().cuda(),
+                               torch.full_like(th, 100.0).detach().cuda())
+        ck.reset_launch_counts()
+        out = model.evaluate(f, th, torch.full_like(th, 4.32e8).detach(),
+                             torch.zeros_like(th).detach(),
+                             torch.full_like(th, 100.0).detach())
+        out.compliance.backward()
+        launched = ck.launch_counts()
+        res[dev] = (float(out.compliance.detach()),
+                    out.disp_solid.detach().cpu(), th.grad.cpu(), launched)
+    assert res["cpu"][3] == {"cell_matvec_T": 0, "affine_combine": 0}
+    assert min(res["cuda"][3].values()) > 0
+    Jc, Jg = res["cpu"][0], res["cuda"][0]
+    assert abs(Jc - Jg) <= 1e-9 * Jc
+    assert _rel(res["cuda"][1], res["cpu"][1]) <= 1e-8
+    assert _rel(res["cuda"][2], res["cpu"][2]) <= 1e-7
+    assert np.isfinite(res["cuda"][2].numpy()).all()

@@ -1,0 +1,98 @@
+"""femo_alpha_tpu_torch imports torch and never jax; its kernel module
+imports without nvcc or a GPU and dispatches on each tensor's device; the
+configurations it has not ported raise NotImplementedError."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import femo_alpha_tpu_torch
+from femo_alpha_tpu_torch.assembly import cuda_kernels as ck
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _all_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(
+            femo_alpha_tpu_torch.__path__, "femo_alpha_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    mods = _all_modules()
+    assert "femo_alpha_tpu_torch.assembly.cuda_kernels" in mods
+    assert "femo_alpha_tpu_torch.models.rm_shell.model" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' "
+        "or k.startswith(('jax.', 'jaxlib', 'femo_alpha_tpu.')) "
+        "or k == 'femo_alpha_tpu')\n"
+        "assert not bad, bad\n"
+        "from femo_alpha_tpu_torch.assembly import cuda_kernels as ck\n"
+        "assert ck._LIB is None  # nothing is built at import\n"
+        "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_cpu_tensors_take_the_twins_and_count_no_launch():
+    rng = np.random.default_rng(0)
+    A = torch.as_tensor(rng.standard_normal((5, 5, 7)))
+    x = torch.as_tensor(rng.standard_normal((5, 7)))
+    B = torch.as_tensor(rng.standard_normal((2, 5, 5, 7)))
+    th = torch.as_tensor(rng.uniform(0.1, 0.3, 7))
+    ck.reset_launch_counts()
+    y = ck.cell_matvec_T(A, x)
+    Ae = ck.affine_combine(B, th, (1, 3))
+    assert ck.launch_counts() == {"cell_matvec_T": 0, "affine_combine": 0}
+    torch.testing.assert_close(y, ck.cell_matvec_T_plain(A, x), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(Ae, ck.affine_combine_plain(B, th, (1, 3)),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["shape", "grad", "device"])
+def test_kernel_wrappers_refuse_bad_input(case):
+    A = torch.zeros((4, 4, 6), dtype=torch.float64)
+    x = torch.zeros((4, 6), dtype=torch.float64)
+    if case == "shape":
+        with pytest.raises(ValueError):
+            ck.cell_matvec_T(A, x[:3])
+        with pytest.raises(ValueError):
+            ck.affine_combine(A[None], torch.zeros(5, dtype=A.dtype), (1,))
+    elif case == "grad":
+        with pytest.raises(RuntimeError):
+            ck.cell_matvec_T(A.requires_grad_(True), x)
+    else:
+        # a non-CPU, non-CUDA tensor neither runs the twin nor a kernel
+        with pytest.raises(ValueError):
+            ck.cell_matvec_T(A.to("meta"), x.to("meta"))
+
+
+@pytest.mark.parametrize("what", ["penalty", "unstructured", "dense",
+                                  "composite", "nodal_material"])
+def test_unported_configurations_raise(what):
+    from femo_alpha_tpu_torch.mesh import createRectangleMesh
+    from femo_alpha_tpu_torch.models import RMShellModel
+
+    structured = what != "unstructured"
+    nx, ny = (8, 2) if what == "dense" else (64, 16)
+    mesh = createRectangleMesh(nx, ny, (0, 0), (10.0, 2.0), "quad", gdim=3,
+                               structured=structured)
+    kw = dict(shell_bc_func=lambda x: x[:, 0] < 1e-12,
+              element_wise_material=what != "nodal_material",
+              PENALTY_BC=what == "penalty")
+    if what == "composite":
+        kw["composite_clt"] = object()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        RMShellModel(mesh, **kw)
