@@ -4,14 +4,20 @@
     python3 chip_smoke.py
 
 Needs one Hopper card (compute capability 9.0) and the CUDA toolkit: it
-builds the port's two hand-written kernels from the sources in this
-checkout, checks each against its plain PyTorch twin on the card, then
-drives the RM-shell slice — RMShellModel.evaluate + compliance.backward()
-on the 128x32 strong-BC cantilever plate (62,886 dofs), f64 — and checks
-the result against the physics anchor, the solve-quality gate and a host
-sparse direct solve of the same assembled system. Each phase prints one
-line; the second-to-last lines are the kernel table (JSON) and the card
-name and power limit (nvidia-smi), the last line is
+builds the port's hand-written kernels from the sources in this checkout
+(one nvcc per source, all at once), checks each against its plain PyTorch
+twin on the card — K1 cell_matvec_T, the fused constrained operator
+constrained_matvec_T at the slice's two smoothed-level shapes (also bit
+for bit from run to run), K2 affine_combine — and times each beside its
+bound and one PyTorch library call that computes the same function. Then
+it drives the RM-shell slice — RMShellModel.evaluate +
+compliance.backward() on the 128x32 strong-BC cantilever plate (62,886
+dofs), f64 — requires that the solve went through the fused operator and
+K2 and never through the standalone K1, and checks the result against the
+physics anchor, the earlier runs' digits, the solve-quality gate and a
+host sparse direct solve of the same assembled system. Each phase prints
+one line; the second-to-last lines are the kernel table (JSON) and the
+card name and power limit (nvidia-smi), the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -34,10 +40,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 K1_BAR = {"float32": 1e-6, "float64": 1e-14}
 K2_BAR = {"float32": 1e-6, "float64": 1e-15}
 K2_GRAD_BAR = 1e-12
+# the fused operator: a length-39 dot product plus at most 4 summands/dof
+FUSED_BAR = {"float32": 1e-6, "float64": 1e-14}
+# the cuSPARSE yardstick sums the same terms in another grouping
+CSR_BAR = {"float32": 1e-4, "float64": 1e-10}
 J_ANCHOR = 4.387e-3          # compliance of the cantilever plate (f_z=2)
 J_BAR = 1e-3
+J_EARLIER, J_EARLIER_BAR = 4.387311691e-03, 1e-8   # the slice's digits
+GRAD_EARLIER, GRAD_EARLIER_BAR = 4.980959076e-04, 1e-6  # before the fused op
 NODAL_BAR = 1e-7
 NODAL_TARGET = 1e-8          # the repo's long-run target, printed beside
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3, and the rates outside the
+# tensor cores, which none of these kernels use
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {"float32": 67e12, "float64": 34e12}
 
 
 def say(phase, **kv):
@@ -56,13 +73,32 @@ def rel_norm(a, b):
                  / torch.linalg.norm(b.double()))
 
 
+def bound(nbytes, flops, dtype_name):
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOP_PER_S[dtype_name] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def cuda_ms(fn, reps):
-    """Mean milliseconds of fn() over `reps` back-to-back calls (CUDA
-    events around the whole run, after one warm-up call)."""
+    """Mean device milliseconds of fn() over `reps` back-to-back calls:
+    CUDA events around the calls, which are queued behind a sleep kernel
+    twice as long as the host takes to launch them, so that the events
+    read the device's time and not the host's launch rate (after one
+    warm-up call). Keep reps x launches per call under the launch queue's
+    depth (about a thousand)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    launch_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    # _sleep counts clock cycles: 2e9 per second is at least the SM clock
+    torch.cuda._sleep(int(min(2.0 * reps * launch_s, 1.0) * 2e9))
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -130,12 +166,17 @@ def phase_k1(ck):
                      f"{K1_BAR[name]:.0e}")
             reps = 200 if nc <= 4096 else 50
             ms = cuda_ms(lambda: ck.cell_matvec_T(A, x), reps)
-            pms = cuda_ms(lambda: ck.cell_matvec_T_plain(A, x), reps)
+            pms = cuda_ms(lambda: ck.cell_matvec_T_plain(A, x), reps // 2)
             cases.append(f"{name}/{nd}/{nc}:err={err:.2e},"
                          f"ms={ms:.5f},plain_ms={pms:.5f}")
             if dtype == torch.float64 and nd == 39 and nc == 4096:
+                lms = cuda_ms(lambda: torch.einsum("ijc,jc->ic", A, x),
+                              reps)
+                nbytes = A.nbytes + x.nbytes + y.nbytes
                 main = dict(max_abs_err=float((y - yp).abs().max()),
-                            ms=ms, plain_ms=pms)
+                            ms=ms, plain_ms=pms, library_ms=lms,
+                            **bound(nbytes, 2 * nd * nd * nc, name))
+                cases.append(f"library_ms={lms:.5f},bytes={nbytes}")
     say("k1_cell_matvec_T", bar="f32<=1e-6,f64<=1e-14",
         cases=json.dumps(cases))
     return main
@@ -181,10 +222,133 @@ def phase_k2(ck):
                          f"{K2_GRAD_BAR:.0e}")
                 case += f",grad_err={gerr:.2e}"
                 if nc == 4096:
+                    coef = torch.stack([th ** p for p in powers])
+                    lms = cuda_ms(lambda: torch.einsum("kc,kijc->ijc", coef,
+                                                       B), 100)
+                    nbytes = B.nbytes + th.nbytes + out.nbytes
+                    flops = (2 * len(powers) - 1) * nd * nd * nc
                     main = dict(max_abs_err=float((out - ref).abs().max()),
-                                ms=ms, plain_ms=pms)
+                                ms=ms, plain_ms=pms, library_ms=lms,
+                                **bound(nbytes, flops, name))
+                    case += f",library_ms={lms:.5f},bytes={nbytes}"
             cases.append(case)
     say("k2_affine_combine", bar="f64<=1e-15,f32<=1e-6,grad<=1e-12",
+        cases=json.dumps(cases))
+    return main
+
+
+def _constrained_csr(Ae, dofmap, free):
+    """Host CSR of the assembled, constrained matrix F K F + (I - F) of
+    cell-major element matrices Ae (nc, nd, nd) (numpy, f64)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    nd = dofmap.shape[1]
+    n = free.shape[0]
+    K = sp.csr_matrix((Ae.ravel(), (np.repeat(dofmap, nd, axis=1).ravel(),
+                                    np.tile(dofmap, (1, nd)).ravel())),
+                      shape=(n, n))
+    return (sp.diags(free) @ K @ sp.diags(free)
+            + sp.diags(1.0 - free)).tocsr()
+
+
+def phase_k1_fused(ck):
+    """The fused constrained operator on the real spaces, tables and BC
+    masks of the slice's two smoothed levels, against its plain twin, bit
+    for bit from run to run, beside its bound, the cuSPARSE product of the
+    same matrix, and the eager composition (gather -> K1 -> scatter ->
+    masks) that the solve ran before it."""
+    import torch
+
+    from femo_alpha_tpu_torch.assembly.assemble import (
+        make_constrained_matvec_T,
+        make_matvec_T,
+    )
+    from femo_alpha_tpu_torch.assembly.bc import (
+        DirichletBC,
+        combine_bcs,
+        constrain_matvec,
+    )
+    from femo_alpha_tpu_torch.mesh import createRectangleMesh
+    from femo_alpha_tpu_torch.models.rm_shell.mg import strong_bc_dofs
+    from femo_alpha_tpu_torch.models.rm_shell.pde import RMShellPDE
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cases, main = [], None
+    for nx, ny in ((128, 32), (64, 16)):
+        mesh = createRectangleMesh(nx, ny, (0, 0), (10.0, 2.0), "quad",
+                                   gdim=3)
+        pde = RMShellPDE(mesh, element_wise_material=True, device="cuda")
+        W = pde.W
+        n, nd, nc = W.n_dofs, W.nd_local, mesh.n_cells
+        bc = [DirichletBC(strong_bc_dofs(pde, lambda x: x[:, 0] < 1e-12))]
+        free64, _ = combine_bcs(n, bc, device="cuda")
+        Ae64 = torch.randn((nd, nd, nc), generator=g, device="cuda",
+                           dtype=torch.float64)
+        x64 = torch.randn((n,), generator=g, device="cuda",
+                          dtype=torch.float64)
+        dofmap_T, inv = W.lane_tables(Ae64.device)
+        B = _constrained_csr(Ae64.permute(2, 0, 1).cpu().numpy(), W.dofmap,
+                             free64.cpu().numpy())
+        for dtype in (torch.float64, torch.float32):
+            name = str(dtype).split(".")[-1]
+            Ae, x, free = (t.to(dtype) for t in (Ae64, x64, free64))
+            op = make_constrained_matvec_T(Ae, W, free)
+            y = op(x)
+            yp = ck.constrained_matvec_T_plain(Ae, x, free, dofmap_T, inv)
+            same = torch.equal(y, op(x))
+            torch.cuda.synchronize()
+            err = rel_norm(y, yp)
+            if not err <= FUSED_BAR[name]:
+                fail(f"fused operator {name} {nx}x{ny}: rel err {err:.3e} > "
+                     f"{FUSED_BAR[name]:.0e}")
+            if not same:
+                fail(f"fused operator {name} {nx}x{ny}: two applications "
+                     f"on the same input differ")
+            csr = torch.sparse_csr_tensor(
+                torch.as_tensor(B.indptr, dtype=torch.int32, device="cuda"),
+                torch.as_tensor(B.indices, dtype=torch.int32, device="cuda"),
+                torch.as_tensor(B.data, dtype=dtype, device="cuda"),
+                size=B.shape, check_invariants=True)
+            csr_err = rel_norm(csr @ x, yp)
+            if not csr_err <= CSR_BAR[name]:
+                fail(f"cuSPARSE yardstick {name} {nx}x{ny}: rel err "
+                     f"{csr_err:.3e} > {CSR_BAR[name]:.0e}")
+            eager = constrain_matvec(make_matvec_T(Ae, W), free)
+            ms = cuda_ms(lambda: op(x), 200)
+            pms = cuda_ms(lambda: ck.constrained_matvec_T_plain(
+                Ae, x, free, dofmap_T, inv), 50)
+            lms = cuda_ms(lambda: csr @ x, 200)
+            ems = cuda_ms(lambda: eager(x), 20)
+            host_us = {}
+            for label, fn in (("fused", op), ("eager", eager)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(1000):
+                    fn(x)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                host_us[label] = ((t1 - t0) * 1e3, (t2 - t0) * 1e3)
+            nbytes = (Ae.nbytes + x.nbytes + free.nbytes + y.nbytes
+                      + dofmap_T.nbytes + inv.nbytes)
+            flops = 2 * nd * nd * nc + n * inv.shape[1] + 3 * n
+            b = bound(nbytes, flops, name)
+            cases.append(
+                f"{name}/{nx}x{ny}/nc={nc}:err={err:.2e},bitwise_repeat="
+                f"{same},ms={ms:.5f},plain_ms={pms:.5f},library_ms={lms:.5f},"
+                f"csr_err={csr_err:.2e},csr_nnz={B.nnz},eager_ms={ems:.5f},"
+                f"bound_ms={b['bound_ms']:.5f},bytes={nbytes},"
+                f"host_us={host_us['fused'][0]:.2f},"
+                f"wall_us={host_us['fused'][1]:.2f},"
+                f"eager_host_us={host_us['eager'][0]:.2f},"
+                f"eager_wall_us={host_us['eager'][1]:.2f}")
+            if dtype == torch.float64 and nc == 4096:
+                main = dict(max_abs_err=float((y - yp).abs().max()), ms=ms,
+                            plain_ms=pms, library_ms=lms, **b)
+    say("k1_fused", bar="f32<=1e-6,f64<=1e-14,bitwise_repeat",
+        host_us="host clock per application over 1000 back-to-back "
+                "applications (before/after synchronize)",
         cases=json.dumps(cases))
     return main
 
@@ -201,7 +365,6 @@ def _slice_inputs(mesh, torch):
 def phase_slice(ck):
     """The slice on the card at 128x32."""
     import numpy as np
-    import scipy.sparse as sp
     import scipy.sparse.linalg as spla
     import torch
 
@@ -212,10 +375,12 @@ def phase_slice(ck):
     nx, ny = 128, 32
     mesh = createRectangleMesh(nx, ny, (0, 0), (10.0, 2.0), "quad", gdim=3)
     t0 = time.perf_counter()
+    # no device=: the model takes the card by default
     model = RMShellModel(mesh, shell_bc_func=lambda x: x[:, 0] < 1e-12,
-                         element_wise_material=True, PENALTY_BC=False,
-                         device="cuda")
+                         element_wise_material=True, PENALTY_BC=False)
     setup_s = time.perf_counter() - t0
+    if model.device.type != "cuda":
+        fail(f"RMShellModel without device= runs on {model.device}")
     pde = model.fea.states["disp_solid"].pde
     n = pde.n_dofs
     f, E, nu, rho, th0 = _slice_inputs(mesh, torch)
@@ -237,8 +402,11 @@ def phase_slice(ck):
         forward_adjoint(th0 * (1.0 + 0.01 * (i + 1)))
         warm.append(time.perf_counter() - t0)
     launches = ck.launch_counts()
-    if min(launches.values()) <= 0:
+    if min(launches["constrained_matvec_T"], launches["affine_combine"]) <= 0:
         fail(f"a kernel of the path was never launched: {launches}")
+    if launches["cell_matvec_T"] != 0:
+        fail(f"the solve ran the standalone K1 (eager gather/scatter "
+             f"around it): {launches}")
 
     # quality at the nominal design (untimed)
     out, grad = forward_adjoint(th0)
@@ -258,15 +426,9 @@ def phase_slice(ck):
         res_floor = float(np.finfo(np.float64).eps) * (
             float(torch.linalg.norm(absAu)) + r0) / r0
         # host direct solve of the same assembled, constrained system
-        Ae_c = Ae.permute(2, 0, 1).cpu().numpy()
-        dm = pde.form.space.dofmap
-        nd = dm.shape[1]
-        rows = np.repeat(dm, nd, axis=1).ravel()
-        cols = np.tile(dm, (1, nd)).ravel()
-        K = sp.csr_matrix((Ae_c.ravel(), (rows, cols)), shape=(n, n))
-        free = pde.free_mask.cpu().numpy()
-        B = (sp.diags(free) @ K @ sp.diags(free)
-             + sp.diags(1.0 - free)).tocsc()
+        B = _constrained_csr(Ae.permute(2, 0, 1).cpu().numpy(),
+                             pde.form.space.dofmap,
+                             pde.free_mask.cpu().numpy()).tocsc()
         b = -pde.residual(zero, params).cpu().numpy()
     t0 = time.perf_counter()
     lu = spla.splu(B)
@@ -291,6 +453,12 @@ def phase_slice(ck):
         fail("non-finite or mis-shaped displacement / gradient")
     if not abs(J / J_ANCHOR - 1.0) < J_BAR:
         fail(f"compliance {J:.6e} vs anchor {J_ANCHOR} (bar {J_BAR})")
+    if not abs(J / J_EARLIER - 1.0) <= J_EARLIER_BAR:
+        fail(f"compliance {J:.9e} vs the earlier {J_EARLIER:.9e} "
+             f"(bar {J_EARLIER_BAR})")
+    if not abs(gnorm / GRAD_EARLIER - 1.0) <= GRAD_EARLIER_BAR:
+        fail(f"|grad| {gnorm:.9e} vs the earlier {GRAD_EARLIER:.9e} "
+             f"(bar {GRAD_EARLIER_BAR})")
     if not rel_res <= max(1e-8, 2.0 * res_floor):
         fail(f"rel_res {rel_res:.3e} > max(1e-8, 2*{res_floor:.3e})")
     if not nodal <= NODAL_BAR:
@@ -315,6 +483,7 @@ def main():
     card = phase_device()
     phase_build(ck)
     k1 = phase_k1(ck)
+    fused = phase_k1_fused(ck)
     k2 = phase_k2(ck)
     launches = phase_slice(ck)
     if "jax" in sys.modules:
@@ -322,11 +491,15 @@ def main():
     table = [
         {"name": "cell_matvec_T", "route": "cuda",
          "source": "femo_alpha_tpu_torch/assembly/csrc/cell_matvec.cu",
-         "replaces": "femo_alpha_tpu/assembly/pallas_kernels.py:41",
+         "replaces": "femo_alpha_tpu/assembly/pallas_kernels.py:42",
          "launches": launches["cell_matvec_T"], **k1},
+        {"name": "constrained_matvec_T", "route": "cuda",
+         "source": "femo_alpha_tpu_torch/assembly/csrc/constrained_matvec.cu",
+         "replaces": "femo_alpha_tpu/assembly/pallas_kernels.py:42",
+         "launches": launches["constrained_matvec_T"], **fused},
         {"name": "affine_combine", "route": "cuda",
          "source": "femo_alpha_tpu_torch/assembly/csrc/affine_combine.cu",
-         "replaces": "femo_alpha_tpu/assembly/pallas_kernels.py:148",
+         "replaces": "femo_alpha_tpu/assembly/pallas_kernels.py:149",
          "launches": launches["affine_combine"], **k2},
     ]
     print(json.dumps({"kernels": table}), flush=True)

@@ -1,21 +1,24 @@
 """Assembly: cell forms, BCs, affine design operator and the Hopper
-kernels (K1 cell_matvec_T, K2 affine_combine)."""
+kernels (K1 cell_matvec_T, the fused constrained_matvec_T, K2
+affine_combine)."""
 
 from .assemble import (
     FemForm,
     assemble_residual,
     assemble_scalar,
     element_matrices,
+    make_constrained_matvec_T,
     make_matvec_T,
 )
 from .bc import DirichletBC, combine_bcs, constrain_matvec, lift_rhs
-from .cuda_kernels import affine_combine, cell_matvec_T
+from .cuda_kernels import affine_combine, cell_matvec_T, constrained_matvec_T
 
 __all__ = [
     "FemForm",
     "assemble_residual",
     "assemble_scalar",
     "element_matrices",
+    "make_constrained_matvec_T",
     "make_matvec_T",
     "DirichletBC",
     "combine_bcs",
@@ -23,4 +26,5 @@ __all__ = [
     "lift_rhs",
     "affine_combine",
     "cell_matvec_T",
+    "constrained_matvec_T",
 ]

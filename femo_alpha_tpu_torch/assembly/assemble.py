@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch.func import grad, jacfwd, vmap
 
-from .cuda_kernels import cell_matvec_T
+from .cuda_kernels import cell_matvec_T, constrained_matvec_T
 
 
 class FemForm:
@@ -99,3 +99,13 @@ def make_matvec_T(Ae_T, space):
         return space.scatter_add_T(ycT)
 
     return matvec
+
+
+def make_constrained_matvec_T(Ae_T, space, free):
+    """The strong-BC operator x -> free*A(free*x) + (1-free)*x from
+    LANE-MAJOR element matrices (nd, nd, nc), as one fused pass over them
+    (cuda_kernels.constrained_matvec_T on the space's cached index tables):
+    what constrain_matvec(make_matvec_T(Ae_T, space), free) computes, in
+    f64 or f32, with no eager op around the kernel."""
+    dofmap_T, inv = space.lane_tables(Ae_T.device)
+    return constrained_matvec_T(Ae_T, free, dofmap_T, inv)

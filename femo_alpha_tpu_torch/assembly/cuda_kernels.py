@@ -3,17 +3,22 @@ and the nvcc/ctypes loader.
 
 K1 `cell_matvec_T` replaces the Pallas kernel
 femo_alpha_tpu/assembly/pallas_kernels.py::cell_matvec_T_pallas; K2
-`affine_combine` replaces ::combine_df_pallas. The CUDA sources live in
-`csrc/` (see the header of each for its bound and design).
+`affine_combine` replaces ::combine_df_pallas. `constrained_matvec_T` is
+K1 redesigned for the card: one whole application of the strong-BC
+operator (gather, per-cell matvec, scatter and masks) in one fused pass
+over the element matrices; the solve path runs it, and K1 stays for the
+unconstrained operator. The CUDA sources live in `csrc/` (see the header
+of each for its bound and design).
 
 Dispatch is on each tensor's own device: a CUDA tensor launches the
 kernel (and raises if the kernel cannot be built or launched), a CPU tensor
 runs the plain PyTorch twin. There is no process-wide switch and no
 fallback from a failed kernel to its twin.
 
-Build: at first use, nvcc compiles both sources for sm_90a into one shared
-library with a plain C interface under `csrc/_build/` (git-ignored), under
-a file lock; it is rebuilt when a source is newer than the library. The
+Build: at first use, one nvcc per source compiles the sources for sm_90a,
+all started together, and one more links them into a shared library with
+a plain C interface under `csrc/_build/` (git-ignored), under a file lock;
+it is rebuilt when a source is newer than the library. The
 library is loaded with ctypes; tensors pass as `data_ptr()`s and kernels
 launch on PyTorch's current stream. Nothing here touches the CUDA
 toolchain at import time.
@@ -33,7 +38,7 @@ import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.join(_CSRC, "_build")
-_SOURCES = ("cell_matvec.cu", "affine_combine.cu")
+_SOURCES = ("cell_matvec.cu", "affine_combine.cu", "constrained_matvec.cu")
 _LIB_NAME = "libfemo_kernels.so"
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
@@ -42,7 +47,8 @@ _LIB = None
 
 # launches of each kernel since the last reset_launch_counts(); the plain
 # twins never count
-_LAUNCHES = {"cell_matvec_T": 0, "affine_combine": 0}
+_LAUNCHES = {"cell_matvec_T": 0, "affine_combine": 0,
+             "constrained_matvec_T": 0}
 _BUILD_INFO = {}
 
 
@@ -73,19 +79,46 @@ def _nvcc():
     return path
 
 
+def _run(procs, what):
+    """Wait for every (name, Popen) and raise on the first failure."""
+    logs, failed = [], None
+    for name, proc in procs:
+        out, _ = proc.communicate(timeout=600)
+        logs.append(f"== {name}\n{out}")
+        if proc.returncode != 0 and failed is None:
+            failed = f"{what} {name} failed ({proc.returncode}):\n{out}"
+    if failed:
+        raise RuntimeError(failed)
+    return "".join(logs)
+
+
 def _build(lib_path):
-    srcs = [os.path.join(_CSRC, s) for s in _SOURCES]
-    tmp = lib_path + f".tmp{os.getpid()}"
-    cmd = [_nvcc(), _ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, *srcs]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    nvcc, t0 = _nvcc(), time.perf_counter()
+    tag = f".tmp{os.getpid()}"
+    objs = [os.path.join(_BUILD_DIR, s[:-3] + tag + ".o") for s in _SOURCES]
+    compiles = [
+        (src, subprocess.Popen(
+            [nvcc, _ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-c", "-o", obj, os.path.join(_CSRC, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src, obj in zip(_SOURCES, objs)]
+    try:
+        log = _run(compiles, "nvcc")
+        tmp = lib_path + tag
+        log += _run([(_LIB_NAME, subprocess.Popen(
+            [nvcc, _ARCH, "-shared", "-o", tmp, *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))],
+            "nvcc link")
+    finally:
+        for _, proc in compiles:
+            if proc.poll() is None:
+                proc.kill()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, lib_path)
-    _BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                       log=proc.stdout + proc.stderr, library=lib_path)
+    _BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log,
+                       library=lib_path)
 
 
 def _stale(lib_path):
@@ -121,6 +154,11 @@ def load_library():
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, vp, i32, ctypes.POINTER(i32), i64, i64,
                            vp]
+            fn.restype = i32
+        for name in ("femo_constrained_matvec_T_f64",
+                     "femo_constrained_matvec_T_f32"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp] * 7 + [i64] * 4 + [vp]
             fn.restype = i32
         lib.femo_cuda_error_string.argtypes = [i32]
         lib.femo_cuda_error_string.restype = ctypes.c_char_p
@@ -189,6 +227,114 @@ def cell_matvec_T(Ae_T, xc_T):
     _check(lib, rc, "cell_matvec_T")
     _LAUNCHES["cell_matvec_T"] += 1
     return y
+
+
+# --------------------------------------------------------------------------
+# The fused constrained operator (K1 redesigned for the card)
+# --------------------------------------------------------------------------
+
+
+def gather_sum(yc, inv):
+    """Dof pass: out[d] = the sum of yc.flatten()[inv[d, k]] over k in table
+    order, starting from zero; padding (-1) adds nothing. With the tables
+    of spaces/space.py::lane_tables it equals the space's scatter_add_T."""
+    g = torch.cat([yc.reshape(-1), yc.new_zeros(1)])[inv]
+    out = torch.zeros_like(g[:, 0])
+    for k in range(g.shape[1]):
+        out = out + g[:, k]
+    return out
+
+
+def constrained_matvec_T_plain(Ae_T, x, free, dofmap_T, inv):
+    """Plain twin of the fused operator, pass by pass: the cell pass
+    yc = (Ae_T * (free * x)[dofmap_T][None]).sum(1), the dof pass over
+    inv, then the mask and the identity on constrained dofs."""
+    yc = (Ae_T * (free * x)[dofmap_T][None]).sum(1)
+    return free * gather_sum(yc, inv) + (1.0 - free) * x
+
+
+def constrained_matvec_T(Ae_T, free, dofmap_T, inv):
+    """The operator x -> free*A(free*x) + (1-free)*x of lane-major element
+    matrices Ae_T (nd, nd, nc), a 0/1 mask `free` (n,) and the int32 tables
+    dofmap_T (nd, nc) and inv (n, w) of spaces/space.py::lane_tables.
+
+    Everything is checked once, here. On CPU tensors the operator is the
+    plain twin; on CUDA tensors each application is one torch.empty and
+    one C call that launches the two passes of csrc/constrained_matvec.cu
+    on the stream that is current now. Solver-facing and forward only:
+    inputs that require grad are refused."""
+    if Ae_T.dim() != 3 or Ae_T.shape[0] != Ae_T.shape[1] or free.dim() != 1:
+        raise ValueError(f"constrained_matvec_T: Ae_T {tuple(Ae_T.shape)}, "
+                         f"free {tuple(free.shape)}")
+    nd, _, nc = Ae_T.shape
+    n = free.shape[0]
+    if (tuple(dofmap_T.shape) != (nd, nc) or inv.dim() != 2
+            or inv.shape[0] != n):
+        raise ValueError(f"constrained_matvec_T: tables "
+                         f"{tuple(dofmap_T.shape)}, {tuple(inv.shape)} for "
+                         f"Ae_T {tuple(Ae_T.shape)} and {n} dofs")
+    if Ae_T.dtype not in _SUFFIX or free.dtype != Ae_T.dtype:
+        raise TypeError(f"constrained_matvec_T: Ae_T {Ae_T.dtype}, free "
+                        f"{free.dtype} (need one of float32/float64)")
+    if dofmap_T.dtype != torch.int32 or inv.dtype != torch.int32:
+        raise TypeError(f"constrained_matvec_T: tables {dofmap_T.dtype}, "
+                        f"{inv.dtype} (need int32)")
+    if torch.is_grad_enabled() and (Ae_T.requires_grad or free.requires_grad):
+        raise RuntimeError("constrained_matvec_T has no autograd rule")
+    tensors = (Ae_T, free, dofmap_T, inv)
+    if all(t.device.type == "cpu" for t in tensors):
+        return lambda x: constrained_matvec_T_plain(Ae_T, x, free, dofmap_T,
+                                                    inv)
+    _require_kernel_inputs("constrained_matvec_T", (Ae_T, free), Ae_T.dtype)
+    for t in (dofmap_T, inv):
+        if t.device != Ae_T.device or not t.is_contiguous():
+            raise ValueError(f"constrained_matvec_T: table on {t.device} "
+                             f"(need contiguous on {Ae_T.device})")
+    return _ConstrainedMatvecT(Ae_T, free, dofmap_T, inv)
+
+
+class _ConstrainedMatvecT:
+    """The CUDA operator of constrained_matvec_T: pointers, sizes, the C
+    function and the stream are resolved once; the cell-value scratch
+    (nd, nc) is reused by every application (all of them run on one
+    stream, in order)."""
+
+    def __init__(self, Ae_T, free, dofmap_T, inv):
+        dev = Ae_T.device
+        if dev.index != torch.cuda.current_device():
+            raise ValueError(f"constrained_matvec_T: tensors on {dev}, but "
+                             f"the current device is cuda:"
+                             f"{torch.cuda.current_device()}")
+        nd, _, nc = Ae_T.shape
+        n, w = inv.shape
+        if nd * nc >= 2 ** 31 or n >= 2 ** 31:
+            raise ValueError(f"constrained_matvec_T: {nd}x{nc} cell values "
+                             f"or {n} dofs overflow the int32 tables")
+        self.lib = load_library()
+        self.fn = getattr(self.lib,
+                          "femo_constrained_matvec_T_" + _SUFFIX[Ae_T.dtype])
+        self.yc = torch.empty((nd, nc), dtype=Ae_T.dtype, device=dev)
+        self.tensors = (Ae_T, free, dofmap_T, inv)  # keep the pointers alive
+        self.ptrs = (Ae_T.data_ptr(), free.data_ptr(), dofmap_T.data_ptr(),
+                     inv.data_ptr(), self.yc.data_ptr())
+        self.sizes = (nd, nc, n, w)
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+        self.n, self.dtype, self.device = n, Ae_T.dtype, dev
+
+    def __call__(self, x):
+        if (x.shape != (self.n,) or x.dtype != self.dtype
+                or x.device != self.device or not x.is_contiguous()):
+            raise ValueError(f"constrained_matvec_T: x {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}, need contiguous "
+                             f"({self.n},) {self.dtype} on {self.device}")
+        y = torch.empty(self.n, dtype=self.dtype, device=self.device)
+        a, f, dm, iv, yc = self.ptrs
+        rc = self.fn(a, x.data_ptr(), f, dm, iv, yc, y.data_ptr(),
+                     *self.sizes, self.stream)
+        if rc:
+            _check(self.lib, rc, "constrained_matvec_T")
+        _LAUNCHES["constrained_matvec_T"] += 1
+        return y
 
 
 # --------------------------------------------------------------------------

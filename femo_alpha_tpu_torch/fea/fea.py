@@ -16,6 +16,7 @@ import torch
 from ..adjoint.implicit import ImplicitPDE
 from ..assembly.assemble import FemForm, assemble_scalar
 from ..assembly.bc import DirichletBC, combine_bcs
+from ..device import resolve_device
 
 
 @dataclass
@@ -40,12 +41,13 @@ class _Output:
 
 class FEA:
     """Registry of inputs / states / outputs over one mesh. `dtype` and
-    `device` are those of the BC masks and of every solve."""
+    `device` are those of the BC masks and of every solve; device None
+    means the CUDA card."""
 
     def __init__(self, mesh, dtype=torch.float64, device=None):
         self.mesh = mesh
         self.dtype = dtype
-        self.device = device
+        self.device = resolve_device(device)
         self.inputs: dict[str, _Input] = {}
         self.states: dict[str, _State] = {}
         self.outputs: dict[str, _Output] = {}

@@ -5,8 +5,8 @@ Port of femo_alpha_tpu/models/rm_shell/mg.py: re-discretizes the shell PDE
 on a nested StructuredQuadMesh hierarchy, coarsens the parameter fields by
 space kind (DG0 cell means, CG1 vertex injection), and re-assembles each
 level per design through its own affine basis (h*M1 + h^3*M3, the K2
-combine). Every level is lane-major, so each smoother step and residual
-runs through the K1 per-cell matvec.
+combine). Every level is lane-major, so each smoother step, residual and
+Lanczos matvec is one application of the fused constrained operator.
 """
 
 from __future__ import annotations
@@ -15,8 +15,9 @@ import numpy as np
 import torch
 
 from ...assembly.affine import CachedAffineAssembler
-from ...assembly.assemble import make_matvec_T
-from ...assembly.bc import DirichletBC, combine_bcs, constrain_matvec
+from ...assembly.assemble import make_constrained_matvec_T
+from ...assembly.bc import DirichletBC, combine_bcs
+from ...device import resolve_device
 from ...solvers.multigrid import GeometricMG
 from ...spaces import locate_dofs_geometric
 
@@ -45,14 +46,22 @@ def strong_bc_dofs(pde, bc_func):
     return np.concatenate([d1, d2 + pde.V_disp.n_dofs])
 
 
+def can_coarsen(nx, ny, coarsest_cells=256):
+    """Whether an nx x ny structured mesh has a coarser MG level."""
+    return nx % 2 == 0 and ny % 2 == 0 and (nx // 2) * (ny // 2) >= \
+        coarsest_cells
+
+
 def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
                    lmin_ratio=0.06, asm_chunk=8192, device=None):
     """GeometricMG (f64) for an RMShellPDE on a StructuredQuadMesh, or None
     when the mesh cannot be coarsened at least once (odd dims / already
-    small). device: where the level masks live (the solve's device)."""
+    small). device: where the levels live (the solve's device); None means
+    the CUDA card."""
     from ...mesh import StructuredQuadMesh
     from .pde import RMShellPDE
 
+    device = resolve_device(device)
     mesh = pde.mesh
     if not getattr(mesh, "structured", False):
         return None
@@ -76,11 +85,7 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
             dtype=torch.float64, device=device)
         return pde_k, free_k
 
-    def can_coarsen(nx_k, ny_k):
-        return (nx_k % 2 == 0 and ny_k % 2 == 0
-                and (nx_k // 2) * (ny_k // 2) >= coarsest_cells)
-
-    if not can_coarsen(mesh.nx, mesh.ny):
+    if not can_coarsen(mesh.nx, mesh.ny, coarsest_cells):
         return None
 
     levels = []
@@ -100,7 +105,7 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
         lev = {"space": pde_k.W, "free": free_k, "affine_asm": asm_k,
                "make_Ae": make_Ae}
         levels.append(lev)
-        if not can_coarsen(nx_k, ny_k):
+        if not can_coarsen(nx_k, ny_k, coarsest_cells):
             break
         cT = _field_coarsener(pde_k.VT, nx_k, ny_k)
         cF = _field_coarsener(pde_k.VF, nx_k, ny_k)
@@ -115,10 +120,7 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
         nx_k, ny_k = nx_k // 2, ny_k // 2
         pde_k, free_k = build_level(nx_k, ny_k)
 
-    def constrained_mv(Ae, space, free_mask):
-        return constrain_matvec(make_matvec_T(Ae, space), free_mask)
-
-    return GeometricMG(levels, constrained_mv, degree=degree,
+    return GeometricMG(levels, make_constrained_matvec_T, degree=degree,
                        lmin_ratio=lmin_ratio)
 
 

@@ -11,12 +11,15 @@ returns a VariableGroup with disp_solid, compliance and mass;
 implicit-function adjoint. The solve is PCG preconditioned by the
 geometric-MG V-cycle, with the fine operator and every MG level
 re-assembled per design through the affine basis (K2), and every operator
-application through the lane-major per-cell matvec (K1).
+application through the fused constrained operator (constrained_matvec_T).
 
 Configurations that are not ported raise NotImplementedError
 (ROADMAP.md, Queue 1): penalty BCs, unstructured meshes, small dense
 solves, composite laminates, nodal (CG1) material fields, mesh tags,
 nodal forces (is_pressure=False) and the mesh-motion input node_disp.
+They raise before the device is looked at. The model runs on the CUDA card
+unless `device` names another; without a card and without `device` it
+raises (pass device="cpu" for the CPU).
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...device import resolve_device
 from ...fea import FEA, FEAModel
-from .mg import ShellMGPrecond, build_shell_mg, strong_bc_dofs
+from .mg import ShellMGPrecond, build_shell_mg, can_coarsen, strong_bc_dofs
 from .pde import RMShellPDE
 
 
@@ -60,6 +64,16 @@ class RMShellModel:
             raise _not_ported("custom solver_opts")
         if dtype != torch.float64:
             raise _not_ported(f"dtype={dtype} (the solve runs in f64)")
+        if element_type != "CG2CG1":
+            raise _not_ported(f"element_type={element_type!r}")
+        # CG2(vec3) x CG1(vec3) dofs of the structured nx x ny quad mesh
+        nx, ny = mesh.nx, mesh.ny
+        n = 3 * (2 * nx + 1) * (2 * ny + 1) + 3 * (nx + 1) * (ny + 1)
+        if n <= 6000:
+            raise _not_ported(f"the dense direct solve (n_dofs={n} <= 6000)")
+        if not can_coarsen(nx, ny):
+            raise _not_ported(f"a mesh of {nx}x{ny} cells without a "
+                              "multigrid hierarchy")
         self.mesh = mesh
         self.shell_bc_func = shell_bc_func
         self.element_wise_material = element_wise_material
@@ -68,8 +82,7 @@ class RMShellModel:
         self.inplane_deg, self.shear_deg = inplane_deg, shear_deg
         self.nel = mesh.n_cells
         self.nn = mesh.n_nodes
-        self.device = torch.device("cpu") if device is None \
-            else torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self.set_up_fea()
 
@@ -80,14 +93,9 @@ class RMShellModel:
             element_type=self.element_type, inplane_deg=self.inplane_deg,
             shear_deg=self.shear_deg, device=self.device)
         n = pde.W.n_dofs
-        if n <= 6000:
-            raise _not_ported(f"the dense direct solve (n_dofs={n} <= 6000)")
         fea = FEA(self.mesh, dtype=self.dtype, device=self.device)
         residual_form = pde.make_residual_form()
         mg = build_shell_mg(pde, self.shell_bc_func, device=self.device)
-        if mg is None:
-            raise _not_ported(f"a mesh of {self.mesh.nx}x{self.mesh.ny} "
-                              "cells without a multigrid hierarchy")
         opts = {"tol": 1e-11, "maxiter": 20 * int(n ** 0.5),
                 "precond_factory": ShellMGPrecond(mg)}
         self.mg = mg

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ...assembly.assemble import FemForm
+from ...device import resolve_device
 from ...elements import tabulate
 from ...elements.quadrature import quadrature_rule
 from ...spaces import FunctionSpace, MixedSpace
@@ -56,7 +57,8 @@ def _interp_vec(space, phi, vals, vs=3):
 
 
 class RMShellPDE:
-    """Spaces + kernels for the RM shell (CG2CG1 elements)."""
+    """Spaces + kernels for the RM shell (CG2CG1 elements). device: where
+    the element tables live; None means the CUDA card."""
 
     def __init__(self, mesh, element_wise_material=False,
                  elementwise_pressure=False, element_type="CG2CG1",
@@ -66,6 +68,7 @@ class RMShellPDE:
             raise _not_ported(f"element_type={element_type!r}")
         if composite is not None:
             raise _not_ported("composite_clt")
+        device = resolve_device(device)
         self.mesh = mesh
         self.element_wise_material = element_wise_material
         self.elementwise_pressure = elementwise_pressure

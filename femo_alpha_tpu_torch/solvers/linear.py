@@ -1,5 +1,6 @@
 """LinearSolver: one object per linearized system — preconditioned CG on
-the strong-BC-constrained, lane-major matrix-free operator.
+the strong-BC-constrained, lane-major matrix-free operator (the fused
+constrained_matvec_T kernel on the card).
 
 Port of the CG + external-preconditioner path of
 femo_alpha_tpu/solvers/linear.py::LinearSolver (op0_layout='lane'). The
@@ -12,8 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ..assembly.assemble import make_matvec_T
-from ..assembly.bc import constrain_matvec
+from ..assembly.assemble import make_constrained_matvec_T
 from .krylov import cg_solve
 
 
@@ -37,8 +37,7 @@ class LinearSolver:
         self.free_mask = (torch.ones(n_dofs, dtype=Ae0.dtype,
                                      device=Ae0.device)
                           if free_mask is None else free_mask)
-        self.matvec = constrain_matvec(make_matvec_T(Ae0, sp0),
-                                       self.free_mask)
+        self.matvec = make_constrained_matvec_T(Ae0, sp0, self.free_mask)
         self.M = M
         self.last_info = None
 

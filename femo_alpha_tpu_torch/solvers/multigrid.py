@@ -373,13 +373,14 @@ class GeometricMG:
 
     # ----------------------------------------------------------- setup
     def setup(self, params, Ae0=None, bases=None):
-        """Returns the state dict: per-level Ae, smoother blocks and lmax,
+        """Returns the state dict: per-level Ae, constrained operators
+        (made once here, applied by every cycle), smoother blocks and lmax,
         and the coarse (scaled) dense inverse.
 
         Ae0: the fine level's element matrices when the caller already has
         them (level 0's make_Ae is then not called). bases: per-level
         affine bases, injected as p["_affine_basis"] for each make_Ae."""
-        state = {"Ae": [], "blocks": [], "lmax": []}
+        state = {"Ae": [], "matvec": [], "blocks": [], "lmax": []}
         p = params
         for k, lev in enumerate(self.levels):
             pk = p if bases is None else {**p, "_affine_basis": bases[k]}
@@ -392,6 +393,7 @@ class GeometricMG:
                 sm = [D.permute(1, 2, 0).contiguous() for D in Dinvs]
                 state["blocks"].append(sm)
                 mv = self.make_matvec(Ae, W, free_k)
+                state["matvec"].append(mv)
                 state["lmax"].append(estimate_lmax(
                     mv, lambda v, W=W, sm=sm: apply_block_jacobi_T(W, sm, v),
                     int(W.n_dofs), Ae.dtype, Ae.device,
@@ -420,7 +422,7 @@ class GeometricMG:
             s = state["coarse_scale"]
             return s * (state["coarse_inv"] @ (s * b))
         W = lev["space"]
-        mv = self.make_matvec(state["Ae"][k], W, free)
+        mv = state["matvec"][k]
         sm = state["blocks"][k]
         lmax = state["lmax"][k]
 

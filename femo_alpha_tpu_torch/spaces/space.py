@@ -50,6 +50,39 @@ def _build_scalar_dofmap(mesh: Mesh, elem):
     return dofmap, n_dofs
 
 
+def lane_index_tables(dofmap, n_dofs):
+    """The index tables of the fused constrained operator for any dofmap
+    (nc, nd): dofmap_T (nd, nc) int32, lane-major, and inv (n_dofs, w)
+    int32, which lists for each dof its flat cell-value entries i*nc + c
+    (local row i, cell c) in increasing order, padded with -1; w is the
+    largest number of entries of one dof (4 on quad meshes)."""
+    nc, nd = dofmap.shape
+    dofmap_T = np.ascontiguousarray(dofmap.T, dtype=np.int32)
+    flat = dofmap_T.reshape(-1).astype(np.int64)
+    order = np.argsort(flat, kind="stable")  # entries of a dof stay sorted
+    counts = np.bincount(flat, minlength=n_dofs)
+    starts = np.cumsum(counts) - counts
+    dofs = flat[order]
+    inv = np.full((n_dofs, max(int(counts.max()), 1)), -1, dtype=np.int32)
+    inv[dofs, np.arange(flat.size) - starts[dofs]] = order
+    return dofmap_T, inv
+
+
+class _LaneTables:
+    """Spaces with a `dofmap`, `n_dofs` and an `_index_cache` dict."""
+
+    def lane_tables(self, device):
+        """(dofmap_T, inv) of `lane_index_tables` on `device`, built once
+        and cached per device."""
+        key = ("lane", str(device))
+        tables = self._index_cache.get(key)
+        if tables is None:
+            tables = self._index_cache[key] = tuple(
+                torch.as_tensor(t, device=device)
+                for t in lane_index_tables(self.dofmap, self.n_dofs))
+        return tables
+
+
 class _StructuredLayout:
     """Slice gathers and slice-add scatters for grid-ordered dofs on a
     StructuredQuadMesh (mesh/structured.py), in the cell-major (nc, nd)
@@ -126,7 +159,7 @@ class _StructuredLayout:
         return self.accumulate(g.permute(0, 2, 3, 1))
 
 
-class FunctionSpace:
+class FunctionSpace(_LaneTables):
     """A (possibly vector-valued) finite element space on a mesh."""
 
     def __init__(self, mesh: Mesh, family: str, degree: int,
@@ -211,7 +244,7 @@ class FunctionSpace:
                 f"ndofs={self.n_dofs})")
 
 
-class MixedSpace:
+class MixedSpace(_LaneTables):
     """Concatenation of function spaces (e.g. RM shell: CG2 vec3 x CG1 vec3).
 
     Global vector = [sub0 dofs | sub1 dofs | ...]; per-cell local dofs are
@@ -226,6 +259,7 @@ class MixedSpace:
         maps = [s.dofmap + off
                 for s, off in zip(self.subspaces, self.offsets[:-1])]
         self.dofmap = np.concatenate(maps, axis=1).astype(np.int32)
+        self._index_cache = {}
         self.local_slices = []
         o = 0
         for s in self.subspaces:

@@ -13,8 +13,8 @@ the card — and prints, one line each:
 - `traced`: one more warm call under torch.profiler: its wall time, the
   device's busy time (union of the intervals of every kernel, copy and
   fill in the trace; the spans below are not device work), the idle
-  share 1 - busy/wall, device ops launched, and K1/K2 launches and
-  device time;
+  share 1 - busy/wall, device ops launched, and the launches and device
+  time of each kernel (the fused operator's two passes, K1, K2);
 - `phases`: host and device time of the phases of that same traced call
   (record_function spans around the solver entry points; nested spans
   are included in their parents: the V-cycles sit inside cg_solve);
@@ -51,7 +51,10 @@ SPANS = [
     ("femo_alpha_tpu_torch.assembly.affine", "element_matrices",
      "affine_element_matrices"),
 ]
-KERNELS = {"cell_matvec_T": "cell_matvec_T_kernel",
+# report name -> substring of the device kernel's name
+KERNELS = {"cmv_cell_pass": "cmv_cell_pass_kernel",
+           "cmv_dof_pass": "cmv_dof_pass_kernel",
+           "cell_matvec_T": "cell_matvec_T_kernel",
            "affine_combine": "affine_combine_kernel"}
 
 

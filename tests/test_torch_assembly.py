@@ -44,7 +44,7 @@ def _rel(a, b):
 @pytest.fixture(scope="module")
 def shell():
     mesh = createRectangleMesh(8, 2, (0, 0), (10.0, 2.0), "quad", gdim=3)
-    pde = RMShellPDE(mesh, element_wise_material=True)
+    pde = RMShellPDE(mesh, element_wise_material=True, device="cpu")
     rpde = RefPDE(ref_rect(8, 2, (0, 0), (10.0, 2.0), "quad", gdim=3),
                   element_wise_material=True)
     rng = np.random.default_rng(7)

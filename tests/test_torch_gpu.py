@@ -1,6 +1,8 @@
-"""Tests of femo_alpha_tpu_torch that need a CUDA card: the two Hopper
-kernels against their plain twins, the launch counters, and the slice on
-the card against the same slice on the CPU. They skip without a card. The
+"""Tests of femo_alpha_tpu_torch that need a CUDA card: the Hopper kernels
+against their plain twins (the fused constrained operator at the slice's
+two smoothed-level shapes, and bit for bit from run to run), the launch
+counters, the card as the default device, and the slice on the card
+against the same slice on the CPU. They skip without a card. The
 file imports no jax, so on a machine without the JAX package it runs on
 its own:
 
@@ -12,6 +14,12 @@ import pytest
 import torch
 
 from femo_alpha_tpu_torch.assembly import cuda_kernels as ck
+from femo_alpha_tpu_torch.assembly.assemble import make_constrained_matvec_T
+from femo_alpha_tpu_torch.assembly.bc import DirichletBC, combine_bcs
+from femo_alpha_tpu_torch.mesh import createRectangleMesh
+from femo_alpha_tpu_torch.models import RMShellModel
+from femo_alpha_tpu_torch.models.rm_shell.mg import strong_bc_dofs
+from femo_alpha_tpu_torch.models.rm_shell.pde import RMShellPDE
 
 pytestmark = pytest.mark.gpu
 
@@ -25,6 +33,34 @@ def cuda():
 
 def _rel(a, b):
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def _clamped(x):
+    return x[:, 0] < 1e-12
+
+
+def _rect(nx, ny):
+    return createRectangleMesh(nx, ny, (0, 0), (10.0, 2.0), "quad", gdim=3)
+
+
+def _shell_operator(gen, nx, ny, dtype):
+    """Seeded Ae and x on the shell's mixed space of an nx x ny plate, with
+    its clamped-edge mask: (fused operator, plain twin, x)."""
+    pde = RMShellPDE(_rect(nx, ny), element_wise_material=True,
+                     device="cuda")
+    W = pde.W
+    free, _ = combine_bcs(W.n_dofs,
+                          [DirichletBC(strong_bc_dofs(pde, _clamped))],
+                          dtype=dtype, device="cuda")
+    Ae = torch.randn((W.nd_local, W.nd_local, nx * ny), generator=gen,
+                     device="cuda", dtype=dtype)
+    x = torch.randn((W.n_dofs,), generator=gen, device="cuda", dtype=dtype)
+    dofmap_T, inv = W.lane_tables(Ae.device)
+
+    def plain(v):
+        return ck.constrained_matvec_T_plain(Ae, v, free, dofmap_T, inv)
+
+    return make_constrained_matvec_T(Ae, W, free), plain, x
 
 
 @pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-6),
@@ -62,23 +98,53 @@ def test_k2_backward_matches_twin_autograd(cuda):
     assert _rel(g1, g2) <= 1e-12
 
 
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-14)])
+@pytest.mark.parametrize("nx,ny", [(128, 32), (64, 16)])
+def test_fused_operator_matches_twin(cuda, dtype, bar, nx, ny):
+    op, plain, x = _shell_operator(cuda, nx, ny, dtype)
+    y = op(x)
+    assert y.dtype == dtype and y.shape == x.shape
+    assert _rel(y, plain(x)) <= bar
+
+
+def test_fused_operator_is_bitwise_repeatable(cuda):
+    op, _, x = _shell_operator(cuda, 128, 32, torch.float64)
+    assert torch.equal(op(x), op(x))
+
+
+def test_fused_operator_refuses_bad_vectors(cuda):
+    op, _, x = _shell_operator(cuda, 64, 16, torch.float64)
+    for bad in (x[1:], x.float(), x.cpu(), x.repeat(2)[::2]):
+        with pytest.raises(ValueError):
+            op(bad)
+
+
+def test_model_defaults_to_the_card(cuda):
+    model = RMShellModel(_rect(64, 16), shell_bc_func=_clamped,
+                         element_wise_material=True, PENALTY_BC=False)
+    assert model.device.type == "cuda"
+    assert model.fea.states["disp_solid"].pde.free_mask.is_cuda
+
+
 def test_launches_are_counted(cuda):
     A = torch.randn((3, 3, 100), generator=cuda, device="cuda",
                     dtype=torch.float64)
     x = torch.randn((3, 100), generator=cuda, device="cuda",
                     dtype=torch.float64)
+    op, plain, v = _shell_operator(cuda, 64, 16, torch.float64)
     ck.reset_launch_counts()
     ck.cell_matvec_T(A, x)
     ck.affine_combine(A[None], x[0], (1,))
     ck.cell_matvec_T_plain(A, x)
-    assert ck.launch_counts() == {"cell_matvec_T": 1, "affine_combine": 1}
+    op(v)
+    plain(v)
+    assert ck.launch_counts() == {"cell_matvec_T": 1, "affine_combine": 1,
+                                  "constrained_matvec_T": 1}
 
 
 def test_slice_on_card_matches_cpu(cuda):
-    from femo_alpha_tpu_torch.mesh import createRectangleMesh
-    from femo_alpha_tpu_torch.models import RMShellModel
-
-    mesh = createRectangleMesh(64, 16, (0, 0), (10.0, 2.0), "quad", gdim=3)
+    mesh = _rect(64, 16)
     res = {}
     for dev in ("cpu", "cuda"):
         model = RMShellModel(mesh, shell_bc_func=lambda x: x[:, 0] < 1e-12,
@@ -103,8 +169,12 @@ def test_slice_on_card_matches_cpu(cuda):
         launched = ck.launch_counts()
         res[dev] = (float(out.compliance.detach()),
                     out.disp_solid.detach().cpu(), th.grad.cpu(), launched)
-    assert res["cpu"][3] == {"cell_matvec_T": 0, "affine_combine": 0}
-    assert min(res["cuda"][3].values()) > 0
+    assert res["cpu"][3] == {"cell_matvec_T": 0, "affine_combine": 0,
+                             "constrained_matvec_T": 0}
+    # the solve path runs the fused operator, never the standalone K1
+    assert res["cuda"][3]["constrained_matvec_T"] > 0
+    assert res["cuda"][3]["affine_combine"] > 0
+    assert res["cuda"][3]["cell_matvec_T"] == 0
     Jc, Jg = res["cpu"][0], res["cuda"][0]
     assert abs(Jc - Jg) <= 1e-9 * Jc
     assert _rel(res["cuda"][1], res["cpu"][1]) <= 1e-8

@@ -54,7 +54,8 @@ def test_cpu_tensors_take_the_twins_and_count_no_launch():
     ck.reset_launch_counts()
     y = ck.cell_matvec_T(A, x)
     Ae = ck.affine_combine(B, th, (1, 3))
-    assert ck.launch_counts() == {"cell_matvec_T": 0, "affine_combine": 0}
+    assert ck.launch_counts() == {"cell_matvec_T": 0, "affine_combine": 0,
+                                  "constrained_matvec_T": 0}
     torch.testing.assert_close(y, ck.cell_matvec_T_plain(A, x), rtol=0,
                                atol=0)
     torch.testing.assert_close(Ae, ck.affine_combine_plain(B, th, (1, 3)),
@@ -91,7 +92,7 @@ def test_unported_configurations_raise(what):
                                structured=structured)
     kw = dict(shell_bc_func=lambda x: x[:, 0] < 1e-12,
               element_wise_material=what != "nodal_material",
-              PENALTY_BC=what == "penalty")
+              PENALTY_BC=what == "penalty", device="cpu")
     if what == "composite":
         kw["composite_clt"] = object()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

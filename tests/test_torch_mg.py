@@ -45,8 +45,8 @@ def _rel(a, b):
 @pytest.fixture(scope="module")
 def hierarchy():
     mesh = createRectangleMesh(NX, NY, (0, 0), (10.0, 2.0), "quad", gdim=3)
-    pde = RMShellPDE(mesh, element_wise_material=True)
-    mg = build_shell_mg(pde, _bc, coarsest_cells=8)
+    pde = RMShellPDE(mesh, element_wise_material=True, device="cpu")
+    mg = build_shell_mg(pde, _bc, coarsest_cells=8, device="cpu")
     rng = np.random.default_rng(11)
     nel, nn = mesh.n_cells, mesh.n_nodes
     p = {"thickness": rng.uniform(0.15, 0.25, nel),

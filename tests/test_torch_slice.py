@@ -65,7 +65,7 @@ def reference():
 def port():
     mesh = createRectangleMesh(NX, NY, (0, 0), (10.0, 2.0), "quad", gdim=3)
     model = RMShellModel(mesh, shell_bc_func=_bc, element_wise_material=True,
-                         PENALTY_BC=False)
+                         PENALTY_BC=False, device="cpu")
     f, th, E, nu, rho = (torch.as_tensor(a, dtype=torch.float64) for a in
                          _inputs(mesh.n_cells, mesh.n_nodes))
     th.requires_grad_(True)
