@@ -15,9 +15,19 @@ compliance.backward() on the 128x32 strong-BC cantilever plate (62,886
 dofs), f64 — requires that the solve went through the fused operator and
 K2 and never through the standalone K1, and checks the result against the
 physics anchor, the earlier runs' digits, the solve-quality gate and a
-host sparse direct solve of the same assembled system. Each phase prints
-one line; the second-to-last lines are the kernel table (JSON) and the
-card name and power limit (nvidia-smi), the last line is
+host sparse direct solve of the same assembled system. Last it drives the
+default aircraft configuration — RMShellModel with penalty BCs on the
+2,388-quad gmsh wing tests/data/pav_like_wing_2388.msh (35,370 dofs), mesh
+tags from the file, evaluate + aggregated_stress.backward(), solved by CG
+preconditioned by the f64 band Cholesky — requires that it went through
+the fused operator (cell and facet blocks) and K2, checks both kernels at
+the wing's shapes against their twins, and checks the result against the
+JAX package's digits, the solve-quality gate, a host SuperLU solve of the
+same assembled penalty system, a central difference of the gradient, and
+two band factors of one system bit for bit. Each path is driven with the
+launch counts set to 0 just before it and read just after. Each phase
+prints one line; the second-to-last lines are the kernel table (JSON) and
+the card name and power limit (nvidia-smi), the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -50,6 +60,14 @@ J_EARLIER, J_EARLIER_BAR = 4.387311691e-03, 1e-8   # the slice's digits
 GRAD_EARLIER, GRAD_EARLIER_BAR = 4.980959076e-04, 1e-6  # before the fused op
 NODAL_BAR = 1e-7
 NODAL_TARGET = 1e-8          # the repo's long-run target, printed beside
+# the JAX package (femo_alpha_tpu RMShellModel, band path, f64) on the PAV
+# wing at the inputs of phase_wing, h = 0.005 (tools/wing_reference_digits.py)
+WING_MESH = os.path.join(HERE, "tests", "data", "pav_like_wing_2388.msh")
+WING_DIGITS = {"aggregated_stress": (4.308117861e+08, 1e-8),
+               "mass": (3.467815462e+02, 1e-8),
+               "compliance": (1.668742743e+01, 1e-8),
+               "grad_norm": (3.176887348e+10, 1e-6)}
+WING_FD_BAR = 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3, and the rates outside the
 # tensor cores, which none of these kernels use
@@ -466,6 +484,263 @@ def phase_slice(ck):
     return launches
 
 
+def _device_ops(fn):
+    """Device operations (kernels, copies, fills) that one call of fn
+    launches, from torch.profiler's CUDA trace; None without one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n or None
+
+
+def _penalty_csr(ops, specs, n):
+    """Host CSR of the sum of lane-major element blocks (numpy, f64)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    K = sp.csr_matrix((n, n))
+    for Ae, spec in zip(ops, specs):
+        A = Ae.permute(2, 0, 1).cpu().numpy()
+        dm = spec.dofmap
+        nd = dm.shape[1]
+        K = K + sp.csr_matrix(
+            (A.ravel(), (np.repeat(dm, nd, axis=1).ravel(),
+                         np.tile(dm, (1, nd)).ravel())), shape=(n, n))
+    return K.tocsr()
+
+
+def _wing_inputs(mesh, torch):
+    """The PAV example's material and its elliptic 4,000 Pa lift pressure
+    (examples/advanced_examples/pav_shell_opt/ex_pav_wing_thickness_opt.py),
+    built as the example builds them."""
+    import numpy as np
+
+    nel, nn = mesh.n_cells, mesh.n_nodes
+    span = float(np.max(mesh.coords[:, 1]))
+    eta = np.clip(np.asarray(mesh.coords[:, 1]) / span, 0.0, 1.0)
+    pressure = np.zeros((nn, 3))
+    pressure[:, 2] = 4000.0 * np.sqrt(1.0 - eta ** 2)
+    kw = dict(dtype=torch.float64, device="cuda")
+    return (torch.as_tensor(pressure, **kw), torch.full((nel,), 71.7e9, **kw),
+            torch.full((nel,), 0.33, **kw), torch.full((nel,), 2780.0, **kw))
+
+
+def phase_wing(ck):
+    """The default aircraft configuration on the card: the PAV wing with
+    penalty BCs through the band Cholesky (see the module docstring)."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from femo_alpha_tpu_torch.mesh import readFEAMesh
+    from femo_alpha_tpu_torch.models import RMShellModel
+
+    h0 = 0.005
+    mesh = readFEAMesh(WING_MESH)
+    nel = mesh.n_cells
+    t0 = time.perf_counter()
+    # no device=: the model takes the card by default
+    model = RMShellModel(mesh, shell_bc_func=lambda x: x[:, 1] < 1e-9,
+                         element_wise_material=True,
+                         mesh_tags={t: np.asarray(c)
+                                    for t, c in mesh.cell_tags.items()})
+    setup_s = time.perf_counter() - t0
+    if model.device.type != "cuda":
+        fail(f"RMShellModel without device= runs on {model.device}")
+    pde = model.fea.states["disp_solid"].pde
+    band = model.band
+    n = pde.n_dofs
+    P, E, nu, rho = _wing_inputs(mesh, torch)
+
+    def run(th_val, backward=True):
+        th = th_val.clone().requires_grad_(backward)
+        out = model.evaluate(P, th, E, nu, rho)
+        agg = out.aggregated_stress
+        if backward:
+            agg.backward()
+        torch.cuda.synchronize()
+        return out, th.grad
+
+    # how often a call factors and applies the band (plain torch, no
+    # launch counter of its own)
+    band_calls = {"factor": 0, "apply": 0}
+
+    def counted(name, fn):
+        def call(*args):
+            band_calls[name] += 1
+            return fn(*args)
+        return call
+
+    band.factor = counted("factor", band.factor)
+    band.apply = counted("apply", band.apply)
+
+    th0 = torch.full((nel,), h0, dtype=torch.float64, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    run(th0)
+    first_s = time.perf_counter() - t0
+    first = ck.launch_counts()
+    first_band = dict(band_calls)
+    warm = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        run(th0 * (1.0 + 0.01 * (i + 1)))
+        warm.append(time.perf_counter() - t0)
+    launches = ck.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_warm = {k: (launches[k] - first[k]) / 3 for k in launches}
+    band_per_warm = {k: (band_calls[k] - first_band[k]) / 3
+                     for k in band_calls}
+    if min(launches["constrained_matvec_T"], launches["affine_combine"]) <= 0:
+        fail(f"wing: a kernel of the path was never launched: {launches}")
+
+    # quality at the nominal design (untimed)
+    out, grad = run(th0)
+    iters = {k: v["iters"] for k, v in pde.last_info.items()}
+    got = {"aggregated_stress": float(out.aggregated_stress.detach()),
+           "mass": float(out.mass.detach()),
+           "compliance": float(out.compliance.detach()),
+           "grad_norm": float(torch.linalg.norm(grad))}
+    tags = {t: float(getattr(out, f"pnorm_stress_{t}").detach()) ** 0.01
+            for t in mesh.cell_tags}
+    stress, disp_x = out.stress.detach(), out.disp_extracted.detach()
+    u = out.disp_solid.detach()
+    d = torch.as_tensor(np.random.default_rng(0).standard_normal(nel),
+                        device="cuda")
+    eps = 1e-5 * h0  # truncation ~1e-7 relative, solve noise below it
+    with torch.no_grad():
+        fd = (float(run(th0 + eps * d, False)[0].aggregated_stress)
+              - float(run(th0 - eps * d, False)[0].aggregated_stress)) \
+            / (2 * eps)
+    ad = float(torch.dot(grad, d))
+    fd_err = abs(fd - ad) / abs(fd)
+
+    with torch.no_grad():
+        params = {"thickness": th0, "E": E, "nu": nu,
+                  "F_solid": model._reorder(P, mesh.input_global_indices),
+                  "uhat": torch.zeros(3 * mesh.n_nodes, dtype=torch.float64,
+                                      device="cuda")}
+        zero = torch.zeros_like(u)
+        r0v = pde.residual(zero, params)
+        r0 = float(torch.linalg.norm(r0v))
+        rel_res = float(torch.linalg.norm(pde.residual(u, params))) / r0
+        ops = pde._assemble_ops(zero, params)
+        torch.cuda.synchronize()
+        B = _penalty_csr(ops, pde._op_specs, n)
+        uh = u.cpu().numpy()
+        res_floor = float(np.finfo(np.float64).eps) * (
+            float(np.linalg.norm(abs(B) @ np.abs(uh))) + r0) / r0
+        b = -r0v.cpu().numpy()
+
+        # the band pieces at this system, and two factors bit for bit
+        def timed(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            return res, (time.perf_counter() - t) * 1e3
+
+        R1, asm_ms = timed(lambda: band.assemble(ops))
+        st1, fac_ms = timed(lambda: band.factor(R1))
+        R2 = band.assemble(ops)
+        st2 = band.factor(R2)
+        same = all(torch.equal(st1[k], st2[k]) for k in ("Ld", "Lc", "s"))
+        v = torch.as_tensor(b, device="cuda")
+        band.apply(st1, v)
+        _, app_ms = timed(lambda: band.apply(st1, v))
+        apply_ops = _device_ops(lambda: band.apply(st1, v))
+        factor_ops = _device_ops(lambda: band.factor(band.assemble(ops)))
+
+        # the kernels at the wing's shapes against their twins, on a
+        # seeded vector (the solution itself would measure the cancellation
+        # in A u, not the kernel)
+        kcases, kerr = [], {}
+        x = torch.randn(n, generator=torch.Generator(device="cuda")
+                        .manual_seed(3), device="cuda", dtype=torch.float64)
+        ones = torch.ones(n, dtype=torch.float64, device="cuda")
+        for label, Ae, spec in (("cell", ops[0], pde._op_specs[0]),
+                                ("facet", ops[1], pde._op_specs[1])):
+            dm_T, inv = spec.lane_tables(Ae.device)
+            op = ck.constrained_matvec_T(Ae, ones, dm_T, inv)
+
+            def plain(Ae=Ae, dm_T=dm_T, inv=inv):
+                return ck.constrained_matvec_T_plain(Ae, x, ones, dm_T, inv)
+
+            y, yp = op(x), plain()
+            torch.cuda.synchronize()
+            kerr[f"fused/{label}"] = err = rel_norm(y, yp)
+            kcases.append(f"fused/{label}/nc={Ae.shape[2]}:err={err:.2e},"
+                          f"ms={cuda_ms(lambda: op(x), 100):.5f},"
+                          f"plain_ms={cuda_ms(plain, 20):.5f}")
+        basis = pde.element_matrices_fn.prepare(params)
+        Ak = ck.affine_combine(basis, th0, (1, 3))
+        Ap = ck.affine_combine_plain(basis, th0, (1, 3))
+        torch.cuda.synchronize()
+        kerr["k2"] = err = rel_norm(Ak, Ap)
+        kcases.append(
+            f"k2/nc={nel}:err={err:.2e},ms="
+            f"{cuda_ms(lambda: ck.affine_combine(basis, th0, (1, 3)), 50):.5f},"
+            f"plain_ms="
+            f"{cuda_ms(lambda: ck.affine_combine_plain(basis, th0, (1, 3)), 50):.5f}")
+    t0 = time.perf_counter()
+    lu = spla.splu(B.tocsc())
+    ud = lu.solve(b)
+    ud = ud + lu.solve(b - B @ ud)
+    direct_s = time.perf_counter() - t0
+    nodal = float(np.linalg.norm(uh - ud) / np.linalg.norm(ud))
+    finite = (bool(torch.isfinite(u).all()) and bool(torch.isfinite(grad).all())
+              and bool(torch.isfinite(stress).all()))
+    say("wing", mesh=os.path.basename(WING_MESH), cells=nel, n_dofs=n,
+        b=band.b, w=band.w, m=band.m, nb=band.nb,
+        setup_s=f"{setup_s:.3f}", first_call_s=f"{first_s:.3f}",
+        warm_median_s=f"{statistics.median(warm):.4f}",
+        warm_s=json.dumps([round(x, 4) for x in warm]),
+        band_assemble_ms=f"{asm_ms:.3f}", band_factor_ms=f"{fac_ms:.3f}",
+        band_apply_ms=f"{app_ms:.3f}",
+        band_apply_device_ops=apply_ops,
+        band_assemble_factor_device_ops=factor_ops,
+        factors_bitwise_equal=same,
+        **{k: f"{v:.9e}" for k, v in got.items()},
+        tag_aggregated=json.dumps({str(k): round(v, 1)
+                                   for k, v in tags.items()}),
+        iters_fwd=iters.get("forward"), iters_adj=iters.get("adjoint"),
+        rel_res=f"{rel_res:.3e}", res_floor=f"{res_floor:.3e}",
+        nodal_err_vs_direct=f"{nodal:.3e}", direct_s=f"{direct_s:.2f}",
+        fd=f"{fd:.9e}", adjoint=f"{ad:.9e}", fd_rel_err=f"{fd_err:.3e}",
+        peak_mem_gb=f"{peak_gb:.3f}", launches=json.dumps(launches),
+        launches_per_warm_call=json.dumps(per_warm),
+        band_calls_per_warm_call=json.dumps(band_per_warm),
+        band_ms_per_warm_call=f"{band_per_warm['factor'] * fac_ms + band_per_warm['apply'] * app_ms:.1f}",
+        kernels_at_wing_shapes=json.dumps(kcases))
+    if not finite or u.shape != (n,) or grad.shape != (nel,) \
+            or disp_x.shape != (mesh.n_nodes, 3) or stress.shape != (4 * nel,):
+        fail("wing: non-finite or mis-shaped outputs")
+    for k, err in kerr.items():
+        bar = K2_BAR["float64"] if k == "k2" else FUSED_BAR["float64"]
+        if not err <= bar:
+            fail(f"wing {k} at the wing's shape: rel err {err:.3e} > {bar}")
+    for k, (want, bar) in WING_DIGITS.items():
+        if not abs(got[k] / want - 1.0) <= bar:
+            fail(f"wing {k} {got[k]:.9e} vs the JAX package's {want:.9e} "
+                 f"(bar {bar})")
+    if not rel_res <= max(1e-8, 2.0 * res_floor):
+        fail(f"wing rel_res {rel_res:.3e} > max(1e-8, 2*{res_floor:.3e})")
+    if not nodal <= NODAL_BAR:
+        fail(f"wing nodal error vs direct {nodal:.3e} > {NODAL_BAR:.0e}")
+    if not fd_err <= WING_FD_BAR:
+        fail(f"wing FD {fd:.9e} vs adjoint {ad:.9e}: rel {fd_err:.3e}")
+    if not same:
+        fail("wing: two band factors of the same system differ")
+    return launches
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -485,22 +760,30 @@ def main():
     k1 = phase_k1(ck)
     fused = phase_k1_fused(ck)
     k2 = phase_k2(ck)
-    launches = phase_slice(ck)
+    by_path = {"slice": phase_slice(ck), "wing": phase_wing(ck)}
+    launches = {k: sum(p[k] for p in by_path.values())
+                for k in by_path["slice"]}
     if "jax" in sys.modules:
         fail("jax was imported")
     table = [
         {"name": "cell_matvec_T", "route": "cuda",
          "source": "femo_alpha_tpu_torch/assembly/csrc/cell_matvec.cu",
          "replaces": "femo_alpha_tpu/assembly/pallas_kernels.py:42",
-         "launches": launches["cell_matvec_T"], **k1},
+         "launches": launches["cell_matvec_T"],
+         "launches_by_path": {k: p["cell_matvec_T"] for k, p in by_path.items()},
+         **k1},
         {"name": "constrained_matvec_T", "route": "cuda",
          "source": "femo_alpha_tpu_torch/assembly/csrc/constrained_matvec.cu",
          "replaces": "femo_alpha_tpu/assembly/pallas_kernels.py:42",
-         "launches": launches["constrained_matvec_T"], **fused},
+         "launches": launches["constrained_matvec_T"],
+         "launches_by_path": {k: p["constrained_matvec_T"] for k, p in by_path.items()},
+         **fused},
         {"name": "affine_combine", "route": "cuda",
          "source": "femo_alpha_tpu_torch/assembly/csrc/affine_combine.cu",
          "replaces": "femo_alpha_tpu/assembly/pallas_kernels.py:149",
-         "launches": launches["affine_combine"], **k2},
+         "launches": launches["affine_combine"],
+         "launches_by_path": {k: p["affine_combine"] for k, p in by_path.items()},
+         **k2},
     ]
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

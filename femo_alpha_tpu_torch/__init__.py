@@ -8,8 +8,10 @@ kernels of the solve path (assembly/cuda_kernels.py) are built by nvcc at
 first use and launched for CUDA tensors, while CPU tensors take their
 plain PyTorch twins.
 
-Ported so far: the strong-BC, structured-mesh RM-shell slice
-(`models.RMShellModel(...).evaluate` + backward of the compliance). See
+Ported so far: the RM-shell statics of element-wise isotropic material
+(`models.RMShellModel(...).evaluate` and the backward of any output) on
+structured plates with strong BCs (geometric MG) and on gmsh or generated
+wings with penalty BCs (band Cholesky), with the stress outputs. See
 ROADMAP.md for what remains.
 """
 

@@ -11,6 +11,11 @@ BC treatment: the residual is "constrained" (BC rows = u - u_bc); the
 linearized solve uses the symmetrically masked operator
 B = f*A*f + (1-f)*I, and lam is zeroed at BC dofs.
 
+Facet forms (penalty BCs) add their residual, and their element matrices
+enter the operator as one more block. For these linear problems the facet
+Jacobian depends on the geometry parameters only (uhat), so it is
+assembled once per uhat value and reused (`_prepare_facet_ops`).
+
 Preconditioners take part through a split protocol:
     prepare(params) -> aux                     (e.g. affine bases)
     setup_state(u, params, ops_Ae, aux) -> state
@@ -18,6 +23,8 @@ Preconditioners take part through a split protocol:
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import torch
 from torch.func import vjp
@@ -37,13 +44,17 @@ class ImplicitPDE:
     decomposition, assembly/affine.py)."""
 
     def __init__(self, form: FemForm, free_mask, bc_vals, solver_opts=None,
-                 element_matrices_fn=None):
+                 element_matrices_fn=None, facet_forms=()):
         self.form = form
         self.n_dofs = form.space.n_dofs
         self.free_mask = free_mask
         self.bc_vals = bc_vals
         self.solver_opts = dict(solver_opts or {})
         self.element_matrices_fn = element_matrices_fn
+        self.facet_forms = [ff for ff in facet_forms if ff.groups]
+        # static op layout: the cell block, then one block per facet form
+        self._op_specs = [form.space] + [ff.block for ff in self.facet_forms]
+        self._fops_cache = None
         self._pc = self.solver_opts.pop("precond_factory", None)
         if self._pc is not None and not hasattr(self._pc, "setup_state"):
             raise NotImplementedError(
@@ -55,39 +66,67 @@ class ImplicitPDE:
     def residual(self, u, params):
         """Constrained residual: BC rows replaced by (u - u_bc)."""
         r = assemble_residual(self.form, u, params)
+        for ff in self.facet_forms:
+            r = r + ff.assemble_residual(u, params)
         return constrain_residual(r, u, self.free_mask, self.bc_vals)
 
-    def _assemble_ops(self, u, params, emf_basis=None):
-        """[Ae0]: the cell operator, lane-major (nd, nd, nc)."""
+    def _assemble_ops(self, u, params, emf_basis=None, facet_ops=None):
+        """The element blocks in the `_op_specs` layout, lane-major
+        (nd, nd, nc): the cell operator, then the facet blocks (given, or
+        assembled here)."""
         if self.element_matrices_fn is not None:
-            return [self.element_matrices_fn(u, params, basis=emf_basis)]
-        Ae = element_matrices(self.form, u, params)
-        return [Ae.permute(1, 2, 0).contiguous()]
+            ops = [self.element_matrices_fn(u, params, basis=emf_basis)]
+        else:
+            Ae = element_matrices(self.form, u, params)
+            ops = [Ae.permute(1, 2, 0).contiguous()]
+        if facet_ops is None:
+            facet_ops = [ff.element_ops(u, params) for ff in self.facet_forms]
+        return ops + list(facet_ops)
 
     def _solver_from(self, ops_Ae, M_state):
         M = None
         if M_state is not None:
             def M(v):
                 return self._pc.apply_state(M_state, v)
-        return LinearSolver([(ops_Ae[0], self.form.space)], self.n_dofs,
+        return LinearSolver(list(zip(ops_Ae, self._op_specs)), self.n_dofs,
                             free_mask=self.free_mask, M=M,
                             **self.solver_opts)
+
+    def _prepare_facet_ops(self, params):
+        """The facet blocks, assembled once per value of the parameters the
+        facet forms read (content hash; the penalty blocks depend on uhat
+        and the geometry only)."""
+        if not self.facet_forms:
+            return []
+        keys = sorted({k for ff in self.facet_forms for k in ff.param_specs})
+        h = hashlib.sha1()
+        for k in keys:
+            h.update(k.encode())
+            h.update(params[k].detach().cpu().numpy().tobytes())
+        ck = h.hexdigest()
+        if self._fops_cache is None or self._fops_cache[0] != ck:
+            u0 = torch.zeros(self.n_dofs, dtype=self.free_mask.dtype,
+                             device=self.free_mask.device)
+            fops = [ff.element_ops(u0, params) for ff in self.facet_forms]
+            self._fops_cache = (ck, fops)
+        return self._fops_cache[1]
 
     def _prepare_aux(self, params):
         fn = self.element_matrices_fn
         emb = fn.prepare(params) if hasattr(fn, "prepare") else None
         pca = self._pc.prepare(params) if self._pc is not None else ()
-        return emb, pca
+        return emb, pca, self._prepare_facet_ops(params)
 
     def _newton_state(self, params, u0, aux):
         """One Newton step from u0 (exact for these linear problems):
         returns (u, linearization state) — the state is what the adjoint
         reuses."""
-        emf_basis, pc_aux = aux
+        emf_basis, pc_aux, facet_ops = aux
         f = self.free_mask
         u = f * u0 + (1.0 - f) * self.bc_vals
         r = self.residual(u, params)
-        ops_Ae = self._assemble_ops(u, params, emf_basis=emf_basis)
+        ops_Ae = self._assemble_ops(u, params, emf_basis=emf_basis,
+                                    facet_ops=facet_ops)
         M_state = (self._pc.setup_state(u, params, ops_Ae, pc_aux)
                    if self._pc is not None else None)
         solver = self._solver_from(ops_Ae, M_state)

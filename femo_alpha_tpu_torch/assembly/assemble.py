@@ -83,6 +83,30 @@ def assemble_scalar(form: FemForm, u, params=None):
     return form.cell_values(form.energy_kernel, u, params or {}).sum()
 
 
+def assemble_scalar_subset(form: FemForm, u, params, cells):
+    """Sum of the cell energies of an energy-kind form over a fixed subset
+    of cells (host integer indices): O(|subset|) gather and kernel work, as
+    the per-tag stress outputs need."""
+    cells = np.asarray(cells, dtype=np.int64)
+    dev = u.device
+    idx = torch.as_tensor(cells, device=dev)
+
+    def rows(space):
+        return torch.as_tensor(space.dofmap, dtype=torch.int64,
+                               device=dev)[idx]
+
+    uc = u[rows(form.space)]
+    xc = torch.as_tensor(form._coords_np[cells], dtype=u.dtype, device=dev)
+    pc, dims = {}, {}
+    for name, sp in form.param_specs.items():
+        v = params[name]
+        if sp is None:
+            pc[name], dims[name] = v, None
+        else:
+            pc[name], dims[name] = v[rows(sp)], 0
+    return vmap(form.energy_kernel, in_dims=(0, 0, dims))(uc, xc, pc).sum()
+
+
 def element_matrices(form: FemForm, u, params=None, chunk=16384):
     """Per-cell Jacobian dR_cell/du_cell: (nc, nd, nd), cell-major."""
     jac = jacfwd(form.kernel, argnums=0)

@@ -1,9 +1,10 @@
 """FEA: problem registry + solve facade.
 
 Port of the subset of femo_alpha_tpu/fea/fea.py that the shell model uses:
-add_input / add_state / add_strong_bc / add_output, solve and
-evaluate_output. Derivative forms are never registered: partials come from
-autograd through the assembled residual inside ImplicitPDE.
+add_input / add_state (with facet forms) / add_strong_bc / add_output (a
+form or a function) / add_field_output, solve, evaluate_output and
+evaluate_field_output. Derivative forms are never registered: partials
+come from autograd through the assembled residual inside ImplicitPDE.
 """
 
 from __future__ import annotations
@@ -30,13 +31,15 @@ class _State:
     arguments: list
     solver_opts: dict = field(default_factory=dict)
     element_matrices_fn: Optional[Callable] = None
+    facet_forms: tuple = ()
     pde: Optional[ImplicitPDE] = None
 
 
 @dataclass
 class _Output:
-    form: FemForm
+    fn: Optional[Callable]  # fn(vals) -> value, or None for a form
     arguments: list
+    form: Optional[FemForm] = None
 
 
 class FEA:
@@ -51,24 +54,33 @@ class FEA:
         self.inputs: dict[str, _Input] = {}
         self.states: dict[str, _State] = {}
         self.outputs: dict[str, _Output] = {}
+        self.field_outputs: dict[str, _Output] = {}
         self.bcs: list[DirichletBC] = []
 
     def add_input(self, name, space):
         self.inputs[name] = _Input(space)
 
     def add_state(self, name, residual_form: FemForm, arguments,
-                  solver_opts=None, element_matrices_fn=None):
-        """A linear state: residual_form over the state space; arguments:
-        the input names the residual reads."""
+                  solver_opts=None, element_matrices_fn=None,
+                  facet_forms=()):
+        """A linear state: residual_form over the state space (plus facet
+        forms, e.g. penalty BCs); arguments: the input names the residual
+        reads."""
         self.states[name] = _State(residual_form, list(arguments),
                                    dict(solver_opts or {}),
-                                   element_matrices_fn)
+                                   element_matrices_fn, tuple(facet_forms))
         self._build_pde(name)
 
-    def add_output(self, name, form, arguments):
-        """Scalar output: an energy-kind FemForm whose first argument is
-        the field it integrates."""
-        self.outputs[name] = _Output(form, list(arguments))
+    def add_output(self, name, form=None, arguments=(), fn=None):
+        """Scalar output: either an energy-kind FemForm whose first argument
+        is the field it integrates, or fn(vals) -> scalar."""
+        if (form is None) == (fn is None):
+            raise ValueError("add_output: give exactly one of form and fn")
+        self.outputs[name] = _Output(fn, list(arguments), form)
+
+    def add_field_output(self, name, fn, arguments=()):
+        """Field output: fn(vals) -> tensor (e.g. an L2 projection)."""
+        self.field_outputs[name] = _Output(fn, list(arguments))
 
     def add_strong_bc(self, dofs, values=0.0):
         self.bcs.append(DirichletBC(dofs, values))
@@ -82,7 +94,8 @@ class FEA:
         opts = {"tol": 1e-12}
         opts.update(st.solver_opts)
         st.pde = ImplicitPDE(st.form, free, bcv, solver_opts=opts,
-                             element_matrices_fn=st.element_matrices_fn)
+                             element_matrices_fn=st.element_matrices_fn,
+                             facet_forms=st.facet_forms)
 
     def solve(self, name, params, u0=None):
         """Differentiable solve of one state."""
@@ -90,6 +103,12 @@ class FEA:
 
     def evaluate_output(self, name, vals):
         out = self.outputs[name]
+        if out.form is None:
+            return out.fn({k: vals[k] for k in out.arguments})
         u_name, pkeys = out.arguments[0], out.arguments[1:]
         return assemble_scalar(out.form, vals[u_name],
                                {k: vals[k] for k in pkeys})
+
+    def evaluate_field_output(self, name, vals):
+        out = self.field_outputs[name]
+        return out.fn({k: vals[k] for k in out.arguments})

@@ -2,7 +2,7 @@
 differentiable function (port of femo_alpha_tpu/fea/model.py).
 
 `evaluate(inputs) -> VariableGroup`: every state is an implicit solve,
-every output a functional evaluated on first access. The group holds
+every output and field output is evaluated on first access. The group holds
 tensors; call `.backward()` on any output.
 """
 
@@ -47,6 +47,9 @@ class FEAModel:
             for oname in fea.outputs:
                 out.add_lazy(oname, lambda fea=fea, oname=oname, vals=vals:
                              fea.evaluate_output(oname, vals))
+            for fname in fea.field_outputs:
+                out.add_lazy(fname, lambda fea=fea, fname=fname, vals=vals:
+                             fea.evaluate_field_output(fname, vals))
         for k, v in vals.items():
             setattr(out, k, v)
         return out

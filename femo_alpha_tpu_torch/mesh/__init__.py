@@ -1,8 +1,8 @@
 """Mesh containers and built-in mesh generation (host numpy).
 
-Copies of femo_alpha_tpu/mesh/{mesh,generation,structured}.py: importing
-the JAX package runs its __init__, which imports jax, so the port carries
-its own copy of these numpy-only layers."""
+Copies of femo_alpha_tpu/mesh/{mesh,generation,structured,wing}.py:
+importing the JAX package runs its __init__, which imports jax, so the port
+carries its own copy of these numpy-only layers."""
 
 from .mesh import Mesh, LOCAL_EDGES
 from .structured import StructuredQuadMesh
@@ -13,6 +13,7 @@ from .generation import (
     readFEAMesh,
     reconstructFEAMesh,
 )
+from .wing import createWingShellMesh
 
 __all__ = [
     "Mesh",
@@ -21,6 +22,7 @@ __all__ = [
     "createIntervalMesh",
     "createRectangleMesh",
     "createUnitSquareMesh",
+    "createWingShellMesh",
     "readFEAMesh",
     "reconstructFEAMesh",
 ]

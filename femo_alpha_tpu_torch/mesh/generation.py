@@ -74,10 +74,18 @@ def createUnitSquareMesh(nx: int, ny: int, cell_type: str = "triangle") -> Mesh:
 
 
 def readFEAMesh(filename, gdim: int = 3) -> Mesh:
-    """Mesh file readers (gmsh, XDMF) are not ported yet."""
-    raise NotImplementedError(
-        "readFEAMesh: mesh file I/O is not ported to femo_alpha_tpu_torch "
-        "yet (ROADMAP.md, Queue 1 item 12)")
+    """Read a mesh file by extension: gmsh ASCII v2.2/v4.1 (.msh). The XDMF
+    reader (.xdmf + HDF5) is not ported yet."""
+    name = str(filename)
+    if name.endswith(".msh"):
+        from ..io.gmsh import read_msh
+
+        return read_msh(name, gdim=gdim)
+    if name.endswith(".xdmf"):
+        raise NotImplementedError(
+            "readFEAMesh: the XDMF reader is not ported to "
+            "femo_alpha_tpu_torch yet (ROADMAP.md, Queue 1 item 12)")
+    raise ValueError(f"unsupported mesh format: {name} (.msh/.xdmf)")
 
 
 def reconstructFEAMesh(nodes, connectivity, cell_type: str | None = None) -> Mesh:

@@ -1,35 +1,53 @@
 """RMShellModel: one-call Reissner-Mindlin shell solver.
 
-Port of the strong-BC structured-mesh path of
-femo_alpha_tpu/models/rm_shell/model.py::RMShellModel:
+Port of femo_alpha_tpu/models/rm_shell/model.py::RMShellModel for
+element-wise (DG0) isotropic material on the MID plane:
 
     RMShellModel(mesh, shell_bc_func, element_wise_material=True,
-                 PENALTY_BC=False).evaluate(f, thickness, E, nu, density)
+                 mesh_tags=...).evaluate(f, thickness, E, nu, density)
 
-returns a VariableGroup with disp_solid, compliance and mass;
-`out.compliance.backward()` fills thickness.grad through the
-implicit-function adjoint. The solve is PCG preconditioned by the
-geometric-MG V-cycle, with the fine operator and every MG level
-re-assembled per design through the affine basis (K2), and every operator
-application through the fused constrained operator (constrained_matvec_T).
+returns a VariableGroup with disp_solid, disp_extracted, compliance, mass,
+volume, elastic_energy, pnorm_stress, aggregated_stress, pnorm_stress_<tag>
+(one per mesh tag) and the DG1 von Mises field `stress`, all
+differentiable: e.g. `out.aggregated_stress.backward()` fills
+thickness.grad through the implicit-function adjoint. Inputs come in the
+caller's node and cell order (a mesh read from a file keeps the file's)
+and are reordered to the FE order inside.
 
-Configurations that are not ported raise NotImplementedError
-(ROADMAP.md, Queue 1): penalty BCs, unstructured meshes, small dense
-solves, composite laminates, nodal (CG1) material fields, mesh tags,
-nodal forces (is_pressure=False) and the mesh-motion input node_disp.
-They raise before the device is looked at. The model runs on the CUDA card
+The solve, by configuration (as the reference chooses it):
+- n_dofs <= 6000: a dense f64 Cholesky of the constrained matrix;
+- strong BCs (PENALTY_BC=False) on a structured mesh with a multigrid
+  hierarchy: PCG preconditioned by the geometric-MG V-cycle;
+- otherwise — penalty BCs (the default) or an unstructured mesh: PCG
+  preconditioned by the f64 band Cholesky of the RCM-ordered system
+  (solvers/band.py), factored once per design and reused by the adjoint.
+Every operator application goes through the fused constrained operator
+(constrained_matvec_T: the cell block and, with penalty BCs, the facet
+block) and every per-design re-assembly of the cell operator through the
+affine basis (K2).
+
+Not ported yet (ROADMAP.md, Queue 1), raising NotImplementedError before
+the device is looked at: composite laminates, nodal (CG1) material fields,
+custom solver_opts, other element types and dtypes; at evaluate: nodal
+forces (is_pressure=False) and the mesh-motion input node_disp. Past the
+band memory guard the reference falls back to an aggregation AMG, which
+is not ported either: that raises too. The model runs on the CUDA card
 unless `device` names another; without a card and without `device` it
 raises (pass device="cpu" for the CPU).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from ...assembly.assemble import assemble_scalar_subset
 from ...device import resolve_device
 from ...fea import FEA, FEAModel
-from .mg import ShellMGPrecond, build_shell_mg, can_coarsen, strong_bc_dofs
+from ...solvers.band import band_precond_factory
+from .mg import ShellMGPrecond, build_shell_mg, strong_bc_dofs
 from .pde import RMShellPDE
 
 
@@ -39,9 +57,35 @@ def _not_ported(what):
         "(see ROADMAP.md, Queue 1)")
 
 
+class AggregatedStressModel:
+    """aggregated = (1/m) * pnorm^(1/rho)."""
+
+    def __init__(self, m: float, rho: int):
+        self.m, self.rho = m, rho
+
+    def evaluate(self, pnorm_stress):
+        return 1.0 / self.m * pnorm_stress ** (1.0 / self.rho)
+
+
+class DisplacementExtractionModel:
+    """CG2 mixed solution -> (n_nodes, 3) nodal displacements in the
+    caller's node order."""
+
+    def __init__(self, shell_pde: RMShellPDE):
+        self.shell_pde = shell_pde
+
+    def evaluate(self, disp_vec):
+        mat = self.shell_pde.extract_nodal_disp(disp_vec)
+        igi = self.shell_pde.mesh.input_global_indices
+        if igi is not None:
+            rev = np.argsort(np.asarray(igi))
+            mat = mat[torch.as_tensor(rev, device=mat.device)]
+        return mat
+
+
 class RMShellModel:
     def __init__(self, mesh, shell_bc_func=None, element_wise_material=False,
-                 PENALTY_BC=True, mesh_tags=None,
+                 rho=100, PENALTY_BC=True, mesh_tags=None,
                  elementwise_pressure=False, element_type="CG2CG1",
                  solver_opts=None, inplane_deg=4, shear_deg=4,
                  composite_clt=None, device=None, dtype=torch.float64):
@@ -49,34 +93,22 @@ class RMShellModel:
             raise ValueError(
                 "Please provide the shell bc location function.\n"
                 "Example: def ClampedBoundary(x): return x[:, 1] < 0.0")
-        if PENALTY_BC:
-            raise _not_ported("PENALTY_BC=True (penalty BCs with the band "
-                              "Cholesky preconditioner)")
-        if not getattr(mesh, "structured", False):
-            raise _not_ported("an unstructured mesh")
         if composite_clt is not None:
             raise _not_ported("composite_clt")
         if not element_wise_material:
             raise _not_ported("element_wise_material=False")
-        if mesh_tags is not None:
-            raise _not_ported("mesh_tags (per-tag stress outputs)")
         if solver_opts is not None:
             raise _not_ported("custom solver_opts")
         if dtype != torch.float64:
             raise _not_ported(f"dtype={dtype} (the solve runs in f64)")
         if element_type != "CG2CG1":
             raise _not_ported(f"element_type={element_type!r}")
-        # CG2(vec3) x CG1(vec3) dofs of the structured nx x ny quad mesh
-        nx, ny = mesh.nx, mesh.ny
-        n = 3 * (2 * nx + 1) * (2 * ny + 1) + 3 * (nx + 1) * (ny + 1)
-        if n <= 6000:
-            raise _not_ported(f"the dense direct solve (n_dofs={n} <= 6000)")
-        if not can_coarsen(nx, ny):
-            raise _not_ported(f"a mesh of {nx}x{ny} cells without a "
-                              "multigrid hierarchy")
         self.mesh = mesh
+        self.mesh_tags = mesh_tags
         self.shell_bc_func = shell_bc_func
         self.element_wise_material = element_wise_material
+        self.m, self.rho = 1e-6, rho
+        self.PENALTY_BC = PENALTY_BC
         self.elementwise_pressure = elementwise_pressure
         self.element_type = element_type
         self.inplane_deg, self.shear_deg = inplane_deg, shear_deg
@@ -84,7 +116,55 @@ class RMShellModel:
         self.nn = mesh.n_nodes
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.subdomain_masks = {}
+        self.association_table = {}
+        if mesh_tags is not None:
+            self.set_up_subdomains(mesh_tags)
         self.set_up_fea()
+
+    # ----------------------------------------------------------- subdomains
+    def set_up_subdomains(self, mesh_tags):
+        """mesh_tags: {tag: [cell indices]} in the CALLER's cell order;
+        converted to per-cell masks in the FE order."""
+        oci = self.mesh.original_cell_index
+        ext2fe = (np.argsort(np.asarray(oci)) if oci is not None
+                  else np.arange(self.nel))
+        for i, (tag, inds) in enumerate(mesh_tags.items()):
+            mask = np.zeros(self.nel)
+            mask[ext2fe[np.asarray(inds, dtype=np.int64)]] = 1.0
+            self.subdomain_masks[tag] = mask
+            self.association_table[tag] = i
+
+    # ------------------------------------------------------------ FEA setup
+    def _solver_opts(self, pde, residual_form, facet_forms, bc_dofs):
+        """The reference's choice of solver (see the module docstring)."""
+        n = pde.W.n_dofs
+        if n <= 6000:
+            return {"method": "dense"}
+        opts = {"method": "cg", "tol": 1e-11, "maxiter": 20 * int(n ** 0.5)}
+        if not self.PENALTY_BC and getattr(self.mesh, "structured", False):
+            mg = build_shell_mg(pde, self.shell_bc_func, device=self.device)
+            if mg is not None:
+                self.mg = mg
+                opts["precond_factory"] = ShellMGPrecond(mg)
+                return opts
+        free = None
+        if bc_dofs is not None:
+            free = np.ones(n)
+            free[bc_dofs] = 0.0
+        bf = band_precond_factory(pde.W, residual_form, facet_forms,
+                                  free_mask=free)
+        # the reference's memory guard (FEMO_BAND_MEM_GB, default 6): past
+        # it, it falls back to an aggregation AMG
+        cap = float(os.environ.get("FEMO_BAND_MEM_GB", "6")) * 1e9
+        mem = bf.band.mem_bytes_reference()
+        if mem > cap:
+            raise _not_ported(
+                f"the AMG fallback past the band memory guard (the band "
+                f"needs ~{mem / 1e9:.1f} GB > {cap / 1e9:.0f} GB)")
+        self.band = bf.band
+        opts["precond_factory"] = bf
+        return opts
 
     def set_up_fea(self):
         pde = self.shell_pde = RMShellPDE(
@@ -92,13 +172,15 @@ class RMShellModel:
             elementwise_pressure=self.elementwise_pressure,
             element_type=self.element_type, inplane_deg=self.inplane_deg,
             shear_deg=self.shear_deg, device=self.device)
-        n = pde.W.n_dofs
         fea = FEA(self.mesh, dtype=self.dtype, device=self.device)
         residual_form = pde.make_residual_form()
-        mg = build_shell_mg(pde, self.shell_bc_func, device=self.device)
-        opts = {"tol": 1e-11, "maxiter": 20 * int(n ** 0.5),
-                "precond_factory": ShellMGPrecond(mg)}
-        self.mg = mg
+        facet_forms, bc_dofs = [], None
+        if self.PENALTY_BC:
+            facet_forms.append(pde.make_penalty_facet_form(
+                self.shell_bc_func))
+        else:
+            bc_dofs = strong_bc_dofs(pde, self.shell_bc_func)
+        opts = self._solver_opts(pde, residual_form, facet_forms, bc_dofs)
         for name, space in [("thickness", pde.VT), ("F_solid", pde.VF),
                             ("E", pde.VT), ("nu", pde.VT),
                             ("density", pde.VT), ("uhat", pde.VU)]:
@@ -111,45 +193,102 @@ class RMShellModel:
         emf = CachedAffineAssembler(residual_form)
         fea.add_state("disp_solid", residual_form,
                       arguments=["thickness", "F_solid", "E", "nu", "uhat"],
-                      solver_opts=opts, element_matrices_fn=emf)
-        fea.add_strong_bc(strong_bc_dofs(pde, self.shell_bc_func), 0.0)
+                      solver_opts=opts, element_matrices_fn=emf,
+                      facet_forms=facet_forms)
+        if bc_dofs is not None:
+            fea.add_strong_bc(bc_dofs, 0.0)
+
+        stress_args = ["disp_solid", "thickness", "E", "nu", "uhat"]
         fea.add_output("compliance", form=pde.compliance_form(),
                        arguments=["disp_solid", "thickness", "uhat"])
         fea.add_output("mass", form=pde.mass_form(),
                        arguments=["thickness", "density", "uhat"])
+        fea.add_output("volume", form=pde.volume_form(),
+                       arguments=["thickness", "uhat"])
+        fea.add_output("elastic_energy", form=pde.elastic_energy_form(),
+                       arguments=stress_args)
+        fea.add_output("pnorm_stress",
+                       form=pde.pnorm_stress_form(m=self.m, rho=self.rho),
+                       arguments=stress_args)
+        if self.subdomain_masks:
+            # one unmasked form shared by every tag; each tag's output
+            # assembles over its own cells only
+            tag_form = pde.pnorm_stress_form(m=self.m, rho=self.rho)
+        for tag, mask in self.subdomain_masks.items():
+            cells = np.nonzero(mask > 0.0)[0]
+
+            def fn(vals, cells=cells):
+                return assemble_scalar_subset(
+                    tag_form, vals["disp_solid"],
+                    {k: vals[k] for k in stress_args[1:]}, cells)
+
+            fea.add_output(f"pnorm_stress_{tag}", fn=fn,
+                           arguments=stress_args)
+        project_vm, _ = pde.von_mises_dg1_projection()
+
+        def stress_fn(vals):
+            return project_vm(vals["disp_solid"],
+                              {k: vals[k] for k in stress_args[1:]})
+
+        fea.add_field_output("stress", stress_fn, arguments=stress_args)
         self.fea = fea
         self.model = FEAModel(fea=[fea])
 
+    # -------------------------------------------------------------- evaluate
     def _tensor(self, v):
         if isinstance(v, torch.Tensor):
-            # the operators, MG hierarchy and bases live on self.device:
-            # a tensor elsewhere is the caller's mistake, never moved
+            # the operators and bases live on self.device: a tensor
+            # elsewhere is the caller's mistake, never moved
             dev = self.device
             if v.device.type != dev.type or (
                     dev.index is not None and v.device.index != dev.index):
                 raise ValueError(
                     f"RMShellModel was built on {dev} but an input lies on "
                     f"{v.device}: pass device= to RMShellModel")
-            return v.to(dtype=self.dtype).reshape(-1)
+            return v.to(dtype=self.dtype)
         return torch.as_tensor(np.asarray(v), dtype=self.dtype,
-                               device=self.device).reshape(-1)
+                               device=self.device)
+
+    def _reorder(self, v, idx):
+        """A caller-ordered input in FE order: v[idx] per node or cell (a
+        flat per-node vector is reordered node by node)."""
+        v = self._tensor(v)
+        if idx is None:
+            return v.reshape(-1)
+        if v.dim() == 1 and v.shape[0] != len(idx):
+            v = v.reshape(len(idx), -1)
+        return v[torch.as_tensor(np.asarray(idx, dtype=np.int64),
+                                 device=self.device)].reshape(-1)
 
     def evaluate(self, force_vector, thickness, E, nu, density,
                  node_disp=None, is_pressure=True):
-        """Inputs as tensors or arrays (structured meshes keep the caller's
-        node and cell ordering). Returns a VariableGroup of tensors with
-        disp_solid, compliance and mass, differentiable end to end."""
+        """Inputs as tensors or arrays in the CALLER's node/cell order.
+        Returns a VariableGroup of tensors, differentiable end to end; the
+        outputs are computed on first access."""
         if not is_pressure:
             raise _not_ported("is_pressure=False (force-to-pressure map)")
         if node_disp is not None:
             raise _not_ported("node_disp (mesh-motion shape input)")
+        pde = self.shell_pde
+        igi = self.mesh.input_global_indices
+        oci = self.mesh.original_cell_index
+        mat_idx = oci if oci is not None else igi
+        f_idx = (oci if self.elementwise_pressure and oci is not None
+                 else igi)
         inputs = {
-            "thickness": self._tensor(thickness),
-            "E": self._tensor(E),
-            "nu": self._tensor(nu),
-            "density": self._tensor(density),
-            "F_solid": self._tensor(force_vector),
+            "thickness": self._reorder(thickness, mat_idx),
+            "E": self._reorder(E, mat_idx),
+            "nu": self._reorder(nu, mat_idx),
+            "density": self._reorder(density, mat_idx),
+            "F_solid": self._reorder(force_vector, f_idx),
             "uhat": torch.zeros(3 * self.nn, dtype=self.dtype,
                                 device=self.device),
         }
-        return self.model.evaluate(inputs)
+        out = self.model.evaluate(inputs)
+        out.add_lazy("disp_extracted",
+                     lambda: DisplacementExtractionModel(pde).evaluate(
+                         out.disp_solid))
+        out.add_lazy("aggregated_stress",
+                     lambda: AggregatedStressModel(self.m, self.rho).evaluate(
+                         out.pnorm_stress))
+        return out

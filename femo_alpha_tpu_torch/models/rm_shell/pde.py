@@ -10,8 +10,15 @@ space, MID reference plane, isotropic material):
   shear/drilling/load/outputs carry J, membrane+bending do not (parity
   with the reference's measure placement)
 
-Penalty BCs, stress recovery, the force-to-pressure map, the BOT reference
-plane and composite laminates are not ported yet (ROADMAP.md, Queue 1).
+- penalty Dirichlet BC: beta/h_E * ||J F^{-T} N|| * |w - g|^2 facet energy
+  with beta = 1e15, on exterior and tagged interior facets
+- stress recovery: through-thickness displacement u(xi2) = u_mid -
+  xi2 (E2 x theta), plane-stress von Mises without transverse shear; its
+  p-norm functional and its DG1 projection
+
+The force-to-pressure map, the BOT reference plane, nodal (CG1) material
+fields with their H1 regularization and composite laminates are not ported
+yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import numpy as np
 import torch
 
 from ...assembly.assemble import FemForm
+from ...assembly.facets import FacetForm, select_facets
 from ...device import resolve_device
 from ...elements import tabulate
 from ...elements.quadrature import quadrature_rule
@@ -33,7 +41,9 @@ from .kinematics import (
     sym2,
     voigt2d,
 )
-from .material import single_layer_clt
+from .material import plane_stress_C, single_layer_clt
+
+PENALTY_BETA = 1e15  # the reference's penalty factor
 
 
 def _not_ported(what):
@@ -62,19 +72,20 @@ class RMShellPDE:
 
     def __init__(self, mesh, element_wise_material=False,
                  elementwise_pressure=False, element_type="CG2CG1",
-                 inplane_deg=4, shear_deg=4, composite=None,
+                 inplane_deg=4, shear_deg=4, stress_deg=4, composite=None,
                  device=None):
         if element_type != "CG2CG1":
             raise _not_ported(f"element_type={element_type!r}")
         if composite is not None:
             raise _not_ported("composite_clt")
-        device = resolve_device(device)
+        device = self.device = resolve_device(device)
         self.mesh = mesh
         self.element_wise_material = element_wise_material
         self.elementwise_pressure = elementwise_pressure
         self.V_disp = FunctionSpace(mesh, "P", 2, value_size=3)
         self.V_rot = FunctionSpace(mesh, "P", 1, value_size=3)
         self.inplane_deg, self.shear_deg = inplane_deg, shear_deg
+        self.stress_deg = stress_deg
         self.W = MixedSpace(self.V_disp, self.V_rot)
         self.VT = FunctionSpace(mesh, "DG" if element_wise_material else "P",
                                 0 if element_wise_material else 1)
@@ -91,7 +102,8 @@ class RMShellPDE:
         # torch.func transforms, which must not create cached tensors
         ct = mesh.cell_type
         self._rules = {}
-        for name, deg in [("inplane", inplane_deg), ("shear", shear_deg)]:
+        for name, deg in [("inplane", inplane_deg), ("shear", shear_deg),
+                          ("stress", stress_deg)]:
             pts, w = quadrature_rule(ct, deg)
             tab_d = tabulate("P", ct, 2, points=pts, weights=w)
             tab_r = tabulate("P", ct, 1, points=pts, weights=w)
@@ -99,10 +111,11 @@ class RMShellPDE:
                              weights=w)
             tab_f = tabulate(self.VF.family, ct, self.VF.degree, points=pts,
                              weights=w)
+            tab_o = tabulate("DG", ct, 1, points=pts, weights=w)
             tabs = dict(d_phi=tab_d.phi, d_dphi=tab_d.dphi,
                         geom_dphi=tab_d.geom_dphi, r_phi=tab_r.phi,
                         r_dphi=tab_r.dphi, t_phi=tab_t.phi, f_phi=tab_f.phi,
-                        w=np.asarray(w))
+                        o_phi=tab_o.phi, w=np.asarray(w))
             self._rules[name] = {
                 k: torch.as_tensor(v, dtype=torch.float64, device=device)
                 for k, v in tabs.items()}
@@ -261,3 +274,179 @@ class RMShellPDE:
 
         return FemForm(self.VT, kern, kind="energy",
                        param_specs={"density": self.VT, "uhat": self.VU})
+
+    def volume_form(self):
+        """int h J(uhat) dx, with the thickness as primary argument."""
+
+        def kern(h_cell, x_cell, p):
+            R = self._rules["inplane"]
+            geo = surface_geometry(x_cell, R["geom_dphi"])
+            dphi_g = phys_grad_table(R["geom_dphi"], geo["Pi"])
+            _, _, detF = deformation(p["uhat"].reshape(self.nv, 3), dphi_g)
+            hq = _interp(self.VT, R["t_phi"], h_cell)
+            return torch.sum(hq * detF * R["w"] * geo["dA"])
+
+        return FemForm(self.VT, kern, kind="energy",
+                       param_specs={"uhat": self.VU})
+
+    def elastic_energy_form(self):
+        """The strain energy (inplane + shear + drilling, no load work)."""
+        specs = dict(self.param_specs)
+        specs.pop("F_solid")
+        return FemForm(self.W,
+                       self.make_elastic_energy_kernel(with_load=False),
+                       kind="energy", param_specs=specs)
+
+    # ------------------------------------------------------------ penalty BC
+    def make_penalty_facet_form(self, bc_locs_func, quad_degree=4,
+                                include_interior=True):
+        """Penalty Dirichlet facet energy (g = 0, beta = 1e15, Nanson-
+        transformed measure) on the exterior facets whose midpoints satisfy
+        bc_locs_func, once each, and on the interior facets all of whose
+        vertices do, once per incident cell (C0 shared dofs make that the
+        ('+') + ('-') pair, and non-manifold junction edges penalize all
+        their incidences)."""
+        cells, locals_ = select_facets(self.mesh, bc_locs_func)
+        if include_interior:
+            icells, ilocals = self.mesh.interior_facets(bc_locs_func)
+            cells = np.concatenate([np.asarray(cells), icells])
+            locals_ = np.concatenate([np.asarray(locals_), ilocals])
+        families = [("P", 2), ("P", 1)]
+        nd2, nd1, nv = self.nd_disp, self.nd_rot, self.nv
+        dev = self.device
+
+        def factory(tabs):
+            t64 = dict(dtype=torch.float64, device=dev)
+            phi_d = torch.as_tensor(tabs.tabs[("P", 2)][0], **t64)
+            phi_r = torch.as_tensor(tabs.tabs[("P", 1)][0], **t64)
+            geom_dphi = torch.as_tensor(tabs.geom_dphi, **t64)
+            dxi_dt = torch.as_tensor(tabs.dxi_dt, **t64)
+            w1d = torch.as_tensor(tabs.weights, **t64)
+
+            def energy(u_cell, x_cell, p):
+                ud = u_cell[: nd2 * 3].reshape(nd2, 3)
+                th = u_cell[nd2 * 3:].reshape(nd1, 3)
+                uhat = p["uhat"].reshape(nv, 3)
+                geo = surface_geometry(x_cell, geom_dphi)
+                dphi_g = phys_grad_table(geom_dphi, geo["Pi"])
+                _, Finv, detF = deformation(uhat, dphi_g)
+                tvec = torch.einsum("qgr,r->qg", geo["Jg"], dxi_dt)
+                tlen = torch.sqrt(torch.sum(tvec * tvec, dim=1))
+                that = tvec / tlen[:, None]
+                # in-plane facet normal (its orientation does not matter)
+                N = cross(that, geo["E2"])
+                # Nanson: n da = J F^{-T} N dA
+                v = detF[:, None] * torch.einsum("qgh,qg->qh", Finv, N)
+                normN = torch.sqrt(torch.sum(v * v, dim=1))
+                u_q = phi_d @ ud
+                th_q = phi_r @ th
+                h_E = cell_diameter(x_cell)
+                mag2 = torch.sum(u_q ** 2, dim=1) + torch.sum(th_q ** 2,
+                                                              dim=1)
+                return torch.sum(
+                    0.5 * PENALTY_BETA / h_E * normN * mag2 * tlen * w1d)
+
+            return energy
+
+        return FacetForm(self.W, factory, cells, locals_,
+                         param_specs={"uhat": self.VU},
+                         quad_degree=quad_degree, families=families)
+
+    # --------------------------------------------------------------- stress
+    @staticmethod
+    def _vm_stress_at_q(pt, xi2):
+        """Plane-stress von Mises at the through-thickness coordinate xi2
+        (transverse shear excluded)."""
+        T, E2 = pt["T"], pt["E2"]
+        # grad u(xi2) = gradx_u - xi2 * (E2 x gradx_th)
+        gradphi = cross(E2[:, :, None], pt["gradx_th"], dim=1)
+        grad_u_xi2 = pt["gradx_u"] - xi2[:, None, None] * gradphi
+        loc = torch.einsum("qik,qkl,qjl->qij", T, grad_u_xi2, T)
+        eps = voigt2d(sym2(loc))
+        C = plane_stress_C(pt["Eq"], pt["nuq"])
+        sig = torch.einsum("qij,qj->qi", C, eps)
+        vm2 = (sig[:, 0] ** 2 - sig[:, 0] * sig[:, 1] + sig[:, 1] ** 2
+               + 3.0 * sig[:, 2] ** 2)
+        return torch.sqrt(torch.clamp(vm2, min=1e-300))
+
+    def pnorm_stress_form(self, m=1e-6, rho=100, alpha=None, surface="Top",
+                          cell_mask=None):
+        """int (m sigma_vM)^rho J dx / alpha at the stress rule, in f64
+        ((m sigma)^rho reaches ~1e263 at aircraft loads). alpha defaults to
+        the reference (uhat = 0) surface area, a constant. With cell_mask
+        (n_cells,), each cell energy is scaled by its entry, passed as the
+        parameter "_mask" (the values are kept on the form as
+        `_mask_values`)."""
+        if alpha is None:
+            alpha = self.surface_area()
+        sgn = {"Top": 0.5, "Mid": 0.0, "Bot": -0.5}[surface]
+
+        def kern(u_cell, x_cell, p):
+            pt = self._pointwise("stress", u_cell, x_cell, p)
+            vm = self._vm_stress_at_q(pt, sgn * pt["tq"])
+            val = torch.sum((m * vm) ** rho * pt["detF"] * pt["w"]
+                            * pt["dA"])
+            return val / alpha
+
+        specs = dict(self.param_specs)
+        specs.pop("F_solid")
+        if cell_mask is None:
+            return FemForm(self.W, kern, kind="energy", param_specs=specs)
+
+        def kern_masked(u_cell, x_cell, p):
+            return kern(u_cell, x_cell, p) * p["_mask"][0]
+
+        specs["_mask"] = FunctionSpace(self.mesh, "DG", 0)
+        form = FemForm(self.W, kern_masked, kind="energy", param_specs=specs)
+        form._mask_values = torch.as_tensor(
+            np.asarray(cell_mask, dtype=np.float64), device=self.device)
+        return form
+
+    def surface_area(self):
+        """Reference (uhat = 0) total surface area: the alpha constant."""
+        R = self._rules["inplane"]
+        x = torch.as_tensor(self.mesh.cell_coords(), dtype=torch.float64,
+                            device=self.device)
+
+        def cell_area(xc):
+            geo = surface_geometry(xc, R["geom_dphi"])
+            return torch.sum(R["w"] * geo["dA"])
+
+        return float(torch.sum(torch.func.vmap(cell_area)(x)))
+
+    def von_mises_dg1_projection(self):
+        """Field output: the von Mises stress (Top) L2-projected into DG1,
+        one local mass solve per cell (a batched f64 Cholesky). Returns
+        (project(u, params) -> DG1 dof vector (cell-major), V_out)."""
+        V_out = FunctionSpace(self.mesh, "DG", 1)
+        specs = dict(self.param_specs)
+        specs.pop("F_solid")
+
+        def cell_fn(u_cell, x_cell, p):
+            pt = self._pointwise("stress", u_cell, x_cell, p)
+            vm = self._vm_stress_at_q(pt, 0.5 * pt["tq"])
+            phi_o = self._rules["stress"]["o_phi"]
+            wdA = pt["w"] * pt["dA"]
+            Mloc = torch.einsum("qa,qb,q->ab", phi_o, phi_o, wdA)
+            b = torch.einsum("qa,q,q->a", phi_o, vm, wdA)
+            return Mloc, b
+
+        form = FemForm(self.W, cell_fn, kind="residual", param_specs=specs)
+
+        def project(u, params):
+            Mloc, b = form.cell_values(form.kernel, u, params)
+            L, info = torch.linalg.cholesky_ex(Mloc)
+            if bool(info.any()):
+                raise RuntimeError("von_mises_dg1_projection: a cell mass "
+                                   "matrix is not positive definite")
+            return torch.cholesky_solve(b[..., None], L)[..., 0].reshape(-1)
+
+        return project, V_out
+
+    # -------------------------------------------------------- interop maps
+    def extract_nodal_disp(self, w):
+        """CG2 -> CG1 nodal displacements (n_nodes, 3): the value of a
+        Lagrange CG2 field at a mesh vertex is its vertex dof, and vertex
+        dofs come first in the dofmap."""
+        nn = self.mesh.n_nodes
+        return w[: 3 * nn].reshape(nn, 3)

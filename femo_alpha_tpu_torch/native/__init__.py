@@ -1,8 +1,8 @@
 """Setup-time mesh topology (host numpy).
 
-The numpy path of femo_alpha_tpu/native/topology.py; the g++ meshops
-library is not carried over."""
+The numpy path of femo_alpha_tpu/native/topology.py and its RCM loop in
+Python; the g++ meshops library is not carried over."""
 
-from .topology import build_edges
+from .topology import build_edges, rcm_order
 
-__all__ = ["build_edges"]
+__all__ = ["build_edges", "rcm_order"]

@@ -1,7 +1,10 @@
-"""Edge extraction for generic meshes: the numpy path of
-femo_alpha_tpu/native/topology.py::build_edges (identical semantics)."""
+"""Setup-time mesh topology for generic meshes (host numpy): the numpy path
+of femo_alpha_tpu/native/topology.py::build_edges (identical semantics),
+and its reverse Cuthill-McKee ordering written out in Python."""
 
 from __future__ import annotations
+
+from collections import deque
 
 import numpy as np
 
@@ -22,3 +25,44 @@ def build_edges(conn, local_edges):
         inv.reshape(nc, n_le).astype(np.int32),
         counts.astype(np.int32),
     )
+
+
+def rcm_order(edges, n_nodes):
+    """Reverse Cuthill-McKee permutation (new -> old) of the node graph.
+
+    The loop of the reference's native rcm_order
+    (femo_alpha_tpu/native/meshops.cpp): adjacency lists in edge order, a
+    breadth-first search from the lowest unvisited node of each component,
+    each node's unvisited neighbours appended by increasing degree (ties in
+    adjacency order), then the whole order reversed. Its std::sort of a
+    list of at most 16 neighbours is an insertion sort, hence stable, so for
+    shell meshes (node degree far below 16) this gives the same
+    permutation, and the same band, as the reference."""
+    edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    deg = np.bincount(edges.ravel(), minlength=n_nodes)
+    # adjacency of node a in edge order: both endpoints of every edge, the
+    # entries of one node kept in the order their edges come
+    src = np.concatenate([edges[:, 0], edges[:, 1]])
+    dst = np.concatenate([edges[:, 1], edges[:, 0]])
+    which = np.concatenate([np.arange(len(edges)), np.arange(len(edges))])
+    order = np.lexsort((which, src))
+    adj = dst[order].tolist()
+    off = np.concatenate([[0], np.cumsum(deg)]).tolist()
+    degl = deg.tolist()
+    seen = [False] * n_nodes
+    out = []
+    for start in range(n_nodes):
+        if seen[start]:
+            continue
+        seen[start] = True
+        out.append(start)
+        q = deque([start])
+        while q:
+            v = q.popleft()
+            nb = [u for u in adj[off[v]:off[v + 1]] if not seen[u]]
+            nb.sort(key=degl.__getitem__)
+            for u in nb:
+                seen[u] = True
+                out.append(u)
+                q.append(u)
+    return np.asarray(out[::-1], dtype=np.int32)

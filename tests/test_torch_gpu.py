@@ -1,8 +1,11 @@
 """Tests of femo_alpha_tpu_torch that need a CUDA card: the Hopper kernels
 against their plain twins (the fused constrained operator at the slice's
 two smoothed-level shapes, and bit for bit from run to run), the launch
-counters, the card as the default device, and the slice on the card
-against the same slice on the CPU. They skip without a card. The
+counters, the card as the default device, the slice on the card
+against the same slice on the CPU, and the default aircraft configuration:
+the band Cholesky factor on the card against the CPU path, and a penalty
+wing model on the card against the same model on the CPU. They skip
+without a card. The
 file imports no jax, so on a machine without the JAX package it runs on
 its own:
 
@@ -180,3 +183,114 @@ def test_slice_on_card_matches_cpu(cuda):
     assert _rel(res["cuda"][1], res["cpu"][1]) <= 1e-8
     assert _rel(res["cuda"][2], res["cpu"][2]) <= 1e-7
     assert np.isfinite(res["cuda"][2].numpy()).all()
+
+
+def _spd_band(rng, n, bw):
+    A = np.zeros((n, n))
+    for i in range(n):
+        for j in range(max(0, i - bw), i + 1):
+            A[i, j] = 0.1 * rng.standard_normal()
+    A = A + A.T
+    return A + np.eye(n) * (np.abs(A).sum(axis=1).max() + 1.0)
+
+
+def test_band_factor_on_card_matches_cpu(cuda):
+    """The band assembled, factored and applied on the card against the
+    same on the CPU: a well-conditioned synthetic band to 1e-12, and on the
+    6x10 penalty wing (condition ~1e12) the factors to 1e-10 and the apply
+    to 1e-8; two factors on the card bit for bit."""
+    from femo_alpha_tpu_torch.assembly.assemble import element_matrices
+    from femo_alpha_tpu_torch.mesh import createWingShellMesh
+    from femo_alpha_tpu_torch.solvers import band as B
+
+    rng = np.random.default_rng(0)
+    n, w, m = 300, 32, 2
+    A = _spd_band(rng, n, 40)
+    b = rng.standard_normal(n)
+    plan = B.band_assembly_plan([np.arange(n)[None]], np.arange(n), n, w, m)
+    xs = {}
+    for dev in ("cpu", "cuda"):
+        slots, inv = (torch.as_tensor(a, device=dev) for a in plan)
+        fill = torch.as_tensor(np.arange(n, 320) // w * (w * 96)
+                               + np.arange(n, 320) % w * 97 + m * w,
+                               device=dev)
+        R = B.assemble_block_band(
+            [torch.as_tensor(A[:, :, None], device=dev)], slots, inv, fill,
+            10, w, 96)
+        s_ = B.equilibrate(R, w, m)
+        Ld, Lc = B.band_cholesky(R, w, m)
+        bp = torch.zeros(320, dtype=torch.float64, device=dev)
+        bp[:n] = torch.as_tensor(b, device=dev)
+        xs[dev] = (B.band_solve(Ld, Lc, bp * s_) * s_)[:n].cpu().numpy()
+    assert np.abs(xs["cuda"] - np.linalg.solve(A, b)).max() <= 1e-12 * \
+        np.abs(xs["cpu"]).max()
+
+    mesh = createWingShellMesh(6, 10, rib_stations=(5,))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        pde = RMShellPDE(mesh, element_wise_material=True, device=dev)
+        ff = pde.make_penalty_facet_form(lambda x: np.abs(x[:, 1]) < 1e-9)
+        kw = dict(dtype=torch.float64, device=dev)
+        nel, nn, nd = mesh.n_cells, mesh.n_nodes, pde.W.n_dofs
+        p = {"thickness": torch.full((nel,), 0.01, **kw),
+             "E": torch.full((nel,), 7e10, **kw),
+             "nu": torch.full((nel,), 0.33, **kw),
+             "uhat": torch.zeros(3 * nn, **kw),
+             "F_solid": torch.zeros(3 * nn, **kw)}
+        u0 = torch.zeros(nd, **kw)
+        ops = [element_matrices(pde.make_residual_form(), u0, p)
+               .permute(1, 2, 0).contiguous(), ff.element_ops(u0, p)]
+        band = B.BandCholPrecond(pde.W, [pde.W.dofmap, ff.block.dofmap])
+        st = band.setup(ops)
+        if dev == "cuda":
+            st2 = band.setup(ops)
+            assert all(torch.equal(st[k], st2[k]) for k in st)
+        v = torch.as_tensor(np.random.default_rng(1).standard_normal(nd),
+                            **kw)
+        res[dev] = {k: t.cpu() for k, t in st.items()}
+        res[dev]["x"] = band.apply(st, v).cpu()
+    for k in ("Ld", "Lc", "s"):
+        assert _rel(res["cuda"][k], res["cpu"][k]) <= 1e-10, k
+    assert _rel(res["cuda"]["x"], res["cpu"]["x"]) <= 1e-8
+
+
+def test_wing_model_on_card_matches_cpu(cuda):
+    """RMShellModel with penalty BCs on the 8x36 wing (8,823 dofs: the band
+    path) on the card against the CPU: the outputs, the displacement and
+    the gradient of aggregated_stress; the card ran the fused operator and
+    K2, the CPU no kernel."""
+    from femo_alpha_tpu_torch.mesh import createWingShellMesh
+
+    mesh = createWingShellMesh(8, 36, rib_stations=(18,))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = RMShellModel(mesh, shell_bc_func=lambda x: np.abs(x[:, 1])
+                             < 1e-9, element_wise_material=True,
+                             mesh_tags=mesh.cell_tags, device=dev)
+        assert model.band.b > 0
+        kw = dict(dtype=torch.float64, device=dev)
+        nel, nn = mesh.n_cells, mesh.n_nodes
+        f = torch.zeros(3 * nn, **kw)
+        f[2::3] = 50.0
+        th = torch.full((nel,), 0.02, **kw).requires_grad_(True)
+        ck.reset_launch_counts()
+        out = model.evaluate(f, th, torch.full((nel,), 7e10, **kw),
+                             torch.full((nel,), 0.33, **kw),
+                             torch.full((nel,), 2700.0, **kw))
+        out.aggregated_stress.backward()
+        res[dev] = dict(launches=ck.launch_counts(), grad=th.grad.cpu(),
+                        u=out.disp_solid.detach().cpu(),
+                        **{k: float(getattr(out, k).detach()) for k in
+                           ("compliance", "mass", "aggregated_stress",
+                            "pnorm_stress_1", "pnorm_stress_2")})
+    assert res["cpu"]["launches"] == {"cell_matvec_T": 0,
+                                      "affine_combine": 0,
+                                      "constrained_matvec_T": 0}
+    assert res["cuda"]["launches"]["constrained_matvec_T"] > 0
+    assert res["cuda"]["launches"]["affine_combine"] > 0
+    for k in ("compliance", "mass", "aggregated_stress"):
+        assert abs(res["cuda"][k] / res["cpu"][k] - 1) <= 1e-9, k
+    for k in ("pnorm_stress_1", "pnorm_stress_2"):  # sigma^100
+        assert abs(res["cuda"][k] / res["cpu"][k] - 1) <= 1e-7, k
+    assert _rel(res["cuda"]["u"], res["cpu"]["u"]) <= 1e-8
+    assert _rel(res["cuda"]["grad"], res["cpu"]["grad"]) <= 1e-6

@@ -27,6 +27,9 @@ def test_every_module_imports_without_jax():
     mods = _all_modules()
     assert "femo_alpha_tpu_torch.assembly.cuda_kernels" in mods
     assert "femo_alpha_tpu_torch.models.rm_shell.model" in mods
+    # the default aircraft configuration's modules, among them
+    for m in ("io.gmsh", "mesh.wing", "solvers.band", "assembly.facets"):
+        assert "femo_alpha_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -82,7 +85,10 @@ def test_kernel_wrappers_refuse_bad_input(case):
 
 @pytest.mark.parametrize("what", ["penalty", "unstructured", "dense",
                                   "composite", "nodal_material"])
-def test_unported_configurations_raise(what):
+def test_unported_configurations_raise(what, monkeypatch):
+    """What each path still lacks: past the band memory guard (penalty BCs,
+    or strong BCs on an unstructured mesh) the reference's AMG fallback;
+    on the dense path the force-to-pressure map; and the options below."""
     from femo_alpha_tpu_torch.mesh import createRectangleMesh
     from femo_alpha_tpu_torch.models import RMShellModel
 
@@ -95,5 +101,13 @@ def test_unported_configurations_raise(what):
               PENALTY_BC=what == "penalty", device="cpu")
     if what == "composite":
         kw["composite_clt"] = object()
+    if what in ("penalty", "unstructured"):
+        monkeypatch.setenv("FEMO_BAND_MEM_GB", "0.001")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        RMShellModel(mesh, **kw)
+        model = RMShellModel(mesh, **kw)
+        if what == "dense":
+            n = mesh.n_nodes
+            model.evaluate(np.ones(3 * n), np.full(mesh.n_cells, 0.1),
+                           np.full(mesh.n_cells, 1e9),
+                           np.full(mesh.n_cells, 0.3),
+                           np.ones(mesh.n_cells), is_pressure=False)

@@ -172,6 +172,9 @@ def _entry_point(what):
     if what == "RMShellModel":
         return RMShellModel(mesh, shell_bc_func=_clamped,
                             element_wise_material=True, PENALTY_BC=False)
+    if what == "RMShellModel_penalty":
+        return RMShellModel(mesh, shell_bc_func=_clamped,
+                            element_wise_material=True)
     if what == "FEA":
         return FEA(mesh)
     if what == "RMShellPDE":
@@ -180,8 +183,8 @@ def _entry_point(what):
     return build_shell_mg(pde, _clamped)
 
 
-@pytest.mark.parametrize("what", ["RMShellModel", "FEA", "RMShellPDE",
-                                  "build_shell_mg"])
+@pytest.mark.parametrize("what", ["RMShellModel", "RMShellModel_penalty",
+                                  "FEA", "RMShellPDE", "build_shell_mg"])
 def test_entry_points_without_a_card_raise(what, monkeypatch):
     """With no `device` the entry points take the card; where there is none
     they raise and say how to ask for the CPU (never a silent fallback).
@@ -197,8 +200,14 @@ def test_entry_points_without_a_card_raise(what, monkeypatch):
                                         ("no_hierarchy", 30, 16)])
 def test_unported_configurations_raise_before_the_device(what, nx, ny,
                                                          monkeypatch):
+    """On each solver path (band, dense, band for a structured mesh with
+    no multigrid hierarchy), an unported option raises before the device
+    is looked at."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    unported = {"penalty": dict(composite_clt=object()),
+                "dense": dict(solver_opts={"method": "gmres"}),
+                "no_hierarchy": dict(dtype=torch.float32)}[what]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         RMShellModel(_rect(nx, ny), shell_bc_func=_clamped,
                      element_wise_material=True,
-                     PENALTY_BC=what == "penalty")
+                     PENALTY_BC=what == "penalty", **unported)
