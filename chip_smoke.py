@@ -15,7 +15,7 @@ compliance.backward() on the 128x32 strong-BC cantilever plate (62,886
 dofs), f64 — requires that the solve went through the fused operator and
 K2 and never through the standalone K1, and checks the result against the
 physics anchor, the earlier runs' digits, the solve-quality gate and a
-host sparse direct solve of the same assembled system. Last it drives the
+host sparse direct solve of the same assembled system. Next it drives the
 default aircraft configuration — RMShellModel with penalty BCs on the
 2,388-quad gmsh wing tests/data/pav_like_wing_2388.msh (35,370 dofs), mesh
 tags from the file, evaluate + aggregated_stress.backward(), solved by CG
@@ -24,8 +24,16 @@ the fused operator (cell and facet blocks) and K2, checks both kernels at
 the wing's shapes against their twins, and checks the result against the
 JAX package's digits, the solve-quality gate, a host SuperLU solve of the
 same assembled penalty system, a central difference of the gradient, and
-two band factors of one system bit for bit. Each path is driven with the
-launch counts set to 0 just before it and read just after. Each phase
+two band factors of one system bit for bit. Then it drives the
+transient shell — PlateSim on the repo's transient workload
+(tools/transient_bench.py: the 40x20 plate, 12,546 dofs, 50 implicit-
+midpoint steps of a 1-cos gust), simulate_outputs + backward through
+MG-preconditioned step solves — requires that it went through the fused
+operator and K2 and never through the standalone K1, and checks it against
+the JAX package's digits, its own history path, a dense f64 Cholesky of
+the step operator and a central difference, and both kernels at its
+shapes against their twins. Each path is driven with the launch counts set
+to 0 just before it and read just after. Each phase
 prints one line; the second-to-last lines are the kernel table (JSON) and
 the card name and power limit (nvidia-smi), the last line is
 
@@ -68,6 +76,12 @@ WING_DIGITS = {"aggregated_stress": (4.308117861e+08, 1e-8),
                "compliance": (1.668742743e+01, 1e-8),
                "grad_norm": (3.176887348e+10, 1e-6)}
 WING_FD_BAR = 1e-5
+# the JAX package (femo_alpha_tpu PlateSim, dense step solves, f64, the
+# energy form summed over the steps) at the inputs of phase_transient,
+# h = 0.1 (tools/transient_reference_digits.py)
+TRANSIENT_DIGITS = {"total_strain_energy": (1.146077323358996e+01, 1e-8),
+                    "grad_norm": (1.042655141329599e+01, 1e-6)}
+TRANSIENT_FD_BAR = 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3, and the rates outside the
 # tensor cores, which none of these kernels use
@@ -741,6 +755,204 @@ def phase_wing(ck):
     return launches
 
 
+def _gust(n_nodes, nsteps, dt):
+    """The gust history of tools/transient_bench.py: f_z = 10 per node times
+    a 1-cos pulse over the first half of the horizon, then zero."""
+    import numpy as np
+
+    f_base = np.zeros(3 * n_nodes)
+    f_base[2::3] = 10.0
+    t = np.arange(nsteps + 1) * dt
+    T_gust = 0.5 * nsteps * dt
+    amp = np.where(t <= T_gust,
+                   0.5 * (1.0 - np.cos(2.0 * np.pi * t / T_gust)), 0.0)
+    return amp[:, None] * f_base[None, :]
+
+
+def phase_transient(ck):
+    """The transient shell on the card: PlateSim on the repo's transient
+    workload (tools/transient_bench.py, not cut), simulate_outputs and the
+    backward of total_strain_energy through MG-PCG step solves."""
+    import numpy as np
+    import torch
+
+    from femo_alpha_tpu_torch.mesh import createRectangleMesh
+    from femo_alpha_tpu_torch.models.dynamic_rm_shell import PlateSim
+
+    t_phase = time.perf_counter()
+    h0, nsteps, seg = 0.1, 50, 5
+    mesh = createRectangleMesh(40, 20, (0, 0), (10.0, 2.0), "quad", gdim=3)
+    nel = mesh.n_cells
+    kw = dict(E=4.32e8, nu=0.0, rho=100.0, dt=0.01, Nsteps=nsteps,
+              element_wise_thickness=True)
+    t0 = time.perf_counter()
+    sim = PlateSim(mesh, **kw)  # no device=: the card by default
+    setup_s = time.perf_counter() - t0
+    if sim.device.type != "cuda":
+        fail(f"PlateSim without device= runs on {sim.device}")
+    if sim.solver_method != "mg" or len(sim.mg.levels) != 2:
+        fail(f"transient: solver {sim.solver_method}, want MG on 2 levels")
+    n = sim.fe_dofs
+    fh = torch.as_tensor(_gust(mesh.n_nodes, nsteps, sim.dt), device="cuda")
+    th0 = torch.full((nel,), h0, dtype=torch.float64, device="cuda")
+
+    def run(th_val, backward):
+        th = th_val.clone().requires_grad_(backward)
+        t = time.perf_counter()
+        if backward:
+            out = sim.simulate_outputs(th, fh, segment_len=seg)
+            out["total_strain_energy"].backward()
+        else:
+            with torch.no_grad():
+                out = sim.simulate_outputs(th, fh, segment_len=seg)
+        torch.cuda.synchronize()
+        return out, th.grad, time.perf_counter() - t, list(sim.solve_log)
+
+    def diff(a, b):
+        return {k: b[k] - a[k] for k in a}
+
+    # 1. the main path, timed: a first call (forward + adjoint), then two
+    # warm designs, the first forward only, the second forward + adjoint
+    # (one call each, to keep the phase near four minutes)
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    out0, g0, first_s, log0 = run(th0, True)
+    c0 = ck.launch_counts()
+    fwd_s = run(th0 * 1.01, False)[2]
+    c1 = ck.launch_counts()
+    fa_s = run(th0 * 1.02, True)[2]
+    launches = ck.launch_counts()
+    per_fwd, per_fa = diff(c0, c1), diff(c1, launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if min(launches["constrained_matvec_T"], launches["affine_combine"]) <= 0:
+        fail(f"transient: a kernel of the path was never launched: {launches}")
+    if launches["cell_matvec_T"] != 0:
+        fail(f"transient: the standalone K1 ran: {launches}")
+    it_f = [k for ph, k in log0 if ph == "forward"]
+    it_a = [k for ph, k in log0 if ph == "adjoint"]
+    E0 = float(out0["total_strain_energy"].detach())
+    gn = float(torch.linalg.norm(g0))
+    got = {"total_strain_energy": E0, "grad_norm": gn}
+
+    # 3. the history path at the same design
+    th = th0.clone().requires_grad_(True)
+    wh, rr = sim.simulate(th, fh, with_residuals=True)
+    Eh = sim.strain_energy_history(wh, th).sum()
+    Eh.backward()
+    wh = wh.detach()
+    hist_e = abs(float(Eh.detach()) / E0 - 1.0)
+    hist_g = rel_norm(th.grad, g0)
+    res_max = float(rr.max())
+
+    # 4. the same inputs through a dense f64 Cholesky of the step operator
+    sim_d = PlateSim(mesh, solver_method="dense", **kw)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        wd = sim_d.simulate(th0, fh)
+    dense_s = time.perf_counter() - t0
+    traj = float((wh - wd).abs().max() / wh.abs().max())
+    th = th0.clone().requires_grad_(True)
+    Ed = sim_d.simulate_outputs(th, fh, segment_len=seg)[
+        "total_strain_energy"]
+    Ed.backward()
+    gd = th.grad
+    dense_g = rel_norm(g0, gd)
+    d = torch.as_tensor(np.random.default_rng(0).standard_normal(nel),
+                        device="cuda")
+    # the energy carries ~3e-10 relative solve noise (an ill-conditioned
+    # step operator): a smaller step amplifies it, a larger one grows the
+    # truncation; at 1e-3 h both are ~3e-6 (tools/transient_fd_steps.py)
+    eps = 1e-3 * h0
+    with torch.no_grad():
+        fd = (float(sim_d.simulate_outputs(th0 + eps * d, fh)
+                    ["total_strain_energy"])
+              - float(sim_d.simulate_outputs(th0 - eps * d, fh)
+                      ["total_strain_energy"])) / (2 * eps)
+    ad = float(torch.dot(gd, d))
+    fd_err = abs(fd - ad) / abs(fd)
+    del sim_d
+
+    # 5. the kernels at this path's shapes against their twins
+    g = torch.Generator(device="cuda").manual_seed(4)
+    kcases, kerr = [], {}
+    BK, BM, BA = sim._bases(th0)
+    lev1 = sim.mg.levels[1]
+    th1 = sim.mg.levels[0]["coarsen"]({"thickness": th0})["thickness"]
+    for label, Ae, W, free in (
+            ("fused/mask", ck.affine_combine(BA, th0, (1, 3)), sim.W,
+             sim.free_mask),
+            ("fused/ones", ck.affine_combine(BK, th0, (1, 3)), sim.W,
+             torch.ones(n, dtype=torch.float64, device="cuda")),
+            ("fused/mask", lev1["make_Ae"]({"thickness": th1}),
+             lev1["space"], lev1["free"])):
+        label = f"{label}/nc={Ae.shape[2]}"
+        x = torch.randn(W.n_dofs, generator=g, device="cuda",
+                        dtype=torch.float64)
+        dm_T, inv = W.lane_tables(Ae.device)
+        op = ck.constrained_matvec_T(Ae, free, dm_T, inv)
+
+        def plain(Ae=Ae, x=x, free=free, dm_T=dm_T, inv=inv):
+            return ck.constrained_matvec_T_plain(Ae, x, free, dm_T, inv)
+
+        y, yp = op(x), plain()
+        torch.cuda.synchronize()
+        kerr[label] = err = rel_norm(y, yp)
+        kcases.append(f"{label}:err={err:.2e},"
+                      f"ms={cuda_ms(lambda: op(x), 100):.5f},"
+                      f"plain_ms={cuda_ms(plain, 20):.5f}")
+    for label, B, powers in ((f"k2/K=2/nc={nel}", BA, (1, 3)),
+                             (f"k2/K=1/nc={nel}", BM, (1,))):
+        Ak = ck.affine_combine(B, th0, powers)
+        Ap = ck.affine_combine_plain(B, th0, powers)
+        torch.cuda.synchronize()
+        kerr[label] = err = rel_norm(Ak, Ap)
+        ms = cuda_ms(lambda: ck.affine_combine(B, th0, powers), 50)
+        pms = cuda_ms(lambda: ck.affine_combine_plain(B, th0, powers), 50)
+        kcases.append(f"{label}:err={err:.2e},ms={ms:.5f},plain_ms={pms:.5f}")
+
+    finite = (bool(torch.isfinite(out0["w_final"]).all())
+              and bool(torch.isfinite(g0).all()))
+    say("transient", mesh=f"{mesh.nx}x{mesh.ny}", n_dofs=n, steps=nsteps,
+        segment=seg, mg_levels=len(sim.mg.levels), setup_s=f"{setup_s:.3f}",
+        first_call_fwd_adj_s=f"{first_s:.3f}", warm_fwd_s=f"{fwd_s:.3f}",
+        warm_fwd_adj_s=f"{fa_s:.3f}",
+        cg_per_step_fwd=f"mean {statistics.mean(it_f):.2f} max {max(it_f)}"
+                        f" over {len(it_f)} solves (recompute included)",
+        cg_per_step_adj=f"mean {statistics.mean(it_a):.2f} max {max(it_a)}"
+                        f" over {len(it_a)} solves",
+        launches=json.dumps(launches),
+        launches_per_warm_fwd=json.dumps(per_fwd),
+        launches_per_warm_fwd_adj=json.dumps(per_fa),
+        peak_mem_gb=f"{peak_gb:.3f}",
+        **{k: f"{v:.15e}" for k, v in got.items()},
+        history_energy_rel=f"{hist_e:.3e}", history_grad_rel=f"{hist_g:.3e}",
+        step_res_max=f"{res_max:.3e}", dense_simulate_s=f"{dense_s:.3f}",
+        dense_traj_rel=f"{traj:.3e}", dense_grad_rel=f"{dense_g:.3e}",
+        fd=f"{fd:.9e}", adjoint=f"{ad:.9e}", fd_rel_err=f"{fd_err:.3e}",
+        kernels_at_transient_shapes=json.dumps(kcases),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if not finite or g0.shape != (nel,) or out0["w_final"].shape != (n,):
+        fail("transient: non-finite or mis-shaped outputs")
+    for k, err in kerr.items():
+        bar = K2_BAR["float64"] if k.startswith("k2") \
+            else FUSED_BAR["float64"]
+        if not err <= bar:
+            fail(f"transient {k}: rel err {err:.3e} > {bar}")
+    for k, (want, bar) in TRANSIENT_DIGITS.items():
+        if not abs(got[k] / want - 1.0) <= bar:
+            fail(f"transient {k} {got[k]:.15e} vs the JAX package's "
+                 f"{want:.15e} (bar {bar})")
+    if not (hist_e <= 1e-9 and hist_g <= 1e-8 and res_max <= 1e-9):
+        fail(f"transient history path: energy {hist_e:.3e} (bar 1e-9), "
+             f"grad {hist_g:.3e} (1e-8), step residual {res_max:.3e} (1e-9)")
+    if not (traj <= 1e-8 and dense_g <= 1e-6):
+        fail(f"transient vs dense: trajectory {traj:.3e} (bar 1e-8), "
+             f"grad {dense_g:.3e} (1e-6)")
+    if not fd_err <= TRANSIENT_FD_BAR:
+        fail(f"transient FD {fd:.9e} vs adjoint {ad:.9e}: rel {fd_err:.3e}")
+    return launches
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -760,7 +972,8 @@ def main():
     k1 = phase_k1(ck)
     fused = phase_k1_fused(ck)
     k2 = phase_k2(ck)
-    by_path = {"slice": phase_slice(ck), "wing": phase_wing(ck)}
+    by_path = {"slice": phase_slice(ck), "wing": phase_wing(ck),
+               "transient": phase_transient(ck)}
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in by_path["slice"]}
     if "jax" in sys.modules:

@@ -1,5 +1,7 @@
-"""Implicit-function adjoint (port of femo_alpha_tpu/adjoint/implicit.py)."""
+"""Implicit-function adjoint and the finite-difference check (port of
+femo_alpha_tpu/adjoint/implicit.py and check.py)."""
 
+from .check import check_totals
 from .implicit import ImplicitPDE
 
-__all__ = ["ImplicitPDE"]
+__all__ = ["ImplicitPDE", "check_totals"]

@@ -13,6 +13,11 @@ small Vandermonde solve; each new design then costs one K2 combine
 The port stores the basis lane-major (K, nd, nd, nc) in native f64 or f32:
 the JAX package's float-float storage and its disk cache exist for the
 TPU's lack of f64 and for its compile times, and are not carried over.
+
+The design gradient of a product A(theta) x is the closed-form
+`vjp_theta`; `AffineOperator` / `AffineApply` make such a product (one
+K2 combine per design, one fused-operator pass per product)
+differentiable in theta and x through it.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import hashlib
 import numpy as np
 import torch
 
-from .assemble import element_matrices
+from .assemble import element_matrices, make_constrained_matvec_T
 from .cuda_kernels import affine_combine
 
 
@@ -67,6 +72,13 @@ class AffineDesignOperator:
         """Ae(theta): (nd, nd, nc) lane-major."""
         B = self.basis if basis is None else basis
         return _affine_combine(B, theta, self.powers)
+
+    def vjp_theta(self, theta, u, lam, space, basis=None):
+        """lam^T dA(theta)/dtheta u per cell, in closed form:
+        sum_k p_k theta_c^(p_k - 1) lam_c^T B_k[:, :, c] u_c, from the
+        lane-major gathers of u and lam (no (nd, nd, nc) cotangent)."""
+        return _vjp_theta(self.basis if basis is None else basis,
+                          self.powers, theta, u, lam, space)
 
     def verify(self, theta, u0, params_of, rtol=1e-9, chunk=8192):
         """Check the decomposition against one direct assembly at `theta`;
@@ -147,7 +159,67 @@ class CachedAffineAssembler:
         """Affine combine with an explicit basis -> (nd, nd, nc)."""
         return _affine_combine(basis, theta, self.powers)
 
+    def vjp_theta(self, theta, u, lam, space, basis=None):
+        """AffineDesignOperator.vjp_theta on the prepared basis (or an
+        explicit one)."""
+        B = self._aff.basis if basis is None else basis
+        return _vjp_theta(B, self.powers, theta, u, lam, space)
+
     def __call__(self, u, params, basis=None):
         if basis is None:
             basis = self.prepare(params)
         return self.combine(params[self.key], basis)
+
+
+def _vjp_theta(B, powers, theta, u, lam, space):
+    ucT = space.gather_T(u).to(B.dtype)
+    lcT = space.gather_T(lam).to(B.dtype)
+    g = torch.zeros_like(theta)
+    for k, p in enumerate(powers):
+        MuT = torch.sum(B[k] * ucT[None, :, :], dim=1)  # (nd, nc)
+        lam_Mu = torch.sum(lcT * MuT, dim=0).to(theta.dtype)  # (nc,)
+        g = g + (p * theta ** (p - 1)) * lam_Mu
+    return g
+
+
+class AffineOperator:
+    """x -> A(theta) x for one design, A affine in theta over a lane-major
+    basis: Ae(theta) is combined once by K2 (under no_grad) and applied by
+    the fused operator with free = ones. Calls are differentiable in theta
+    and x through AffineApply."""
+
+    def __init__(self, basis, powers, theta, space):
+        self.basis, self.powers, self.space = basis, tuple(powers), space
+        self.theta = theta
+        with torch.no_grad():
+            self.Ae = _affine_combine(basis, theta.detach(), self.powers)
+        ones = torch.ones(space.n_dofs, dtype=self.Ae.dtype,
+                          device=self.Ae.device)
+        self.matvec = make_constrained_matvec_T(self.Ae, space, ones)
+
+    def __call__(self, x):
+        return AffineApply.apply(self.theta, x, self)
+
+
+class AffineApply(torch.autograd.Function):
+    """y = A(theta) x. A is symmetric, so dx = A g (one more fused-operator
+    pass); d theta is the closed-form vjp_theta(theta, x, g), never the
+    (nd, nd, nc) cotangent that AffineCombine.backward would form."""
+
+    @staticmethod
+    def forward(ctx, theta, x, op):
+        ctx.op = op
+        ctx.save_for_backward(theta, x)
+        return op.matvec(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        theta, x = ctx.saved_tensors
+        op = ctx.op
+        g = g.contiguous()
+        dth = dx = None
+        if ctx.needs_input_grad[0]:
+            dth = _vjp_theta(op.basis, op.powers, theta, x, g, op.space)
+        if ctx.needs_input_grad[1]:
+            dx = op.matvec(g)
+        return dth, dx, None

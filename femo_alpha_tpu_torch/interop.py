@@ -43,6 +43,13 @@ def affine_basis_to_lane(B, layout="cells", dtype=torch.float64,
                            device=device)
 
 
+def platesim_inputs_to_torch(t_array, f_history, device=None):
+    """A reference PlateSim's thickness (num_var,) and nodal force history
+    (time_levels, n_f) -> f64 tensors for the port's PlateSim."""
+    return (to_tensor(t_array, device=device),
+            to_tensor(f_history, device=device))
+
+
 def mg_bases_to_lane(bases, layout="cells", dtype=torch.float64,
                      device=None):
     """Per-level affine bases of a reference MG hierarchy -> tuple of

@@ -1,0 +1,105 @@
+"""Geometric multigrid for the transient shell's step operator.
+
+Port of femo_alpha_tpu/models/dynamic_rm_shell/mg.py. The implicit-midpoint
+step solves A w = b with A = (2/dt^2) M + K/2, which is stiffness-dominated
+at practical dt, so Jacobi-PCG needs thousands of iterations. This builds
+the nested structured hierarchy of models/rm_shell/mg.py with per-level
+step operators: each coarser level re-discretizes the step form
+(2/dt^2) inertia + elastic/2, whose element matrices are exactly
+h*M1 + h^3*M3 in the element-wise thickness, so each level re-assembles
+per design through its own affine basis (one K2 combine). Every level is
+lane-major and f64: each smoother step, residual and Lanczos matvec is one
+application of the fused constrained operator. The fine level's operator
+is the PlateSim's own (GeometricMG.setup(..., Ae0=...)).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...assembly.affine import CachedAffineAssembler
+from ...assembly.assemble import FemForm, make_constrained_matvec_T
+from ...assembly.bc import DirichletBC, combine_bcs
+from ...solvers.multigrid import GeometricMG
+from ..rm_shell.mg import _field_coarsener, can_coarsen, strong_bc_dofs
+
+
+def step_form(pde, dt):
+    """The step operator's energy (2/dt^2) inertia + elastic/2 on an
+    RMShellPDE, with the parameters thickness, E, nu, uhat and the scalar
+    rho."""
+    c2 = 2.0 / dt ** 2
+    inertia = pde.inertia_form(rho_is_param=False).energy_kernel
+    elastic = pde.make_elastic_energy_kernel(with_load=False)
+
+    def energy(u_cell, x_cell, p):
+        return c2 * inertia(u_cell, x_cell, p) + 0.5 * elastic(u_cell,
+                                                               x_cell, p)
+
+    return FemForm(pde.W, energy, kind="energy",
+                   param_specs={"thickness": pde.VT, "E": pde.VT,
+                                "nu": pde.VT, "uhat": pde.VU, "rho": None})
+
+
+def build_platesim_mg(sim, coarsest_cells=64, degree=6, lmin_ratio=0.06,
+                      asm_chunk=8192):
+    """GeometricMG (f64) for a PlateSim's step operator, or None if the
+    mesh is not a coarsenable StructuredQuadMesh.
+
+    Level params: {"thickness": t_k}; E, nu, rho and dt are fixed PlateSim
+    attributes, baked into each coarser level's step form."""
+    from ...mesh import StructuredQuadMesh
+    from ..rm_shell.pde import RMShellPDE
+
+    mesh = sim.mesh
+    if not getattr(mesh, "structured", False):
+        return None
+    if not can_coarsen(mesh.nx, mesh.ny, coarsest_cells):
+        return None
+    c = np.asarray(mesh.coords)
+    p0 = (float(c[:, 0].min()), float(c[:, 1].min()))
+    p1 = (float(c[:, 0].max()), float(c[:, 1].max()))
+    dev = sim.device
+    t64 = dict(dtype=torch.float64, device=dev)
+
+    def coarser_level(nx_k, ny_k):
+        pde_k = RMShellPDE(
+            StructuredQuadMesh(nx_k, ny_k, p0, p1, gdim=mesh.gdim),
+            element_wise_material=True, inplane_deg=sim.quad_deg,
+            shear_deg=sim.quad_deg, stress_deg=sim.quad_deg, device=dev)
+        free_k, _ = combine_bcs(
+            pde_k.W.n_dofs,
+            [DirichletBC(strong_bc_dofs(pde_k, sim.bc_func))], **t64)
+        # verify=False: these bases only feed the V-cycle (preconditioner
+        # quality, not solution accuracy); the fine operator's bases in
+        # PlateSim keep their verify
+        asm_k = CachedAffineAssembler(step_form(pde_k, sim.dt),
+                                      chunk=asm_chunk, verify=False)
+        nT = pde_k.VT.n_dofs
+        consts = {"E": torch.full((nT,), float(sim.E), **t64),
+                  "nu": torch.full((nT,), float(sim.nu), **t64),
+                  "uhat": torch.zeros(pde_k.VU.n_dofs, **t64),
+                  "rho": torch.tensor(float(sim.rho), **t64)}
+
+        def make_Ae(p):
+            return asm_k(None, {**consts, "thickness": p["thickness"]})
+
+        return pde_k, {"space": pde_k.W, "free": free_k, "make_Ae": make_Ae}
+
+    # the fine level's operator is the PlateSim's own, passed to
+    # GeometricMG.setup as Ae0
+    pde_k = sim.pde
+    levels = [{"space": sim.W, "free": sim.free_mask, "make_Ae": None}]
+    nx_k, ny_k = mesh.nx, mesh.ny
+    while True:
+        cT = _field_coarsener(pde_k.VT, nx_k, ny_k)
+        levels[-1]["coarsen"] = lambda p, cT=cT: {
+            "thickness": cT(p["thickness"])}
+        nx_k, ny_k = nx_k // 2, ny_k // 2
+        pde_k, lev = coarser_level(nx_k, ny_k)
+        levels.append(lev)
+        if not can_coarsen(nx_k, ny_k, coarsest_cells):
+            break
+    return GeometricMG(levels, make_constrained_matvec_T, degree=degree,
+                       lmin_ratio=lmin_ratio)

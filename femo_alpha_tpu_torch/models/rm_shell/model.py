@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from ...assembly.assemble import assemble_scalar_subset
-from ...device import resolve_device
+from ...device import resolve_device, tensor_on
 from ...fea import FEA, FEAModel
 from ...solvers.band import band_precond_factory
 from .mg import ShellMGPrecond, build_shell_mg, strong_bc_dofs
@@ -236,18 +236,8 @@ class RMShellModel:
 
     # -------------------------------------------------------------- evaluate
     def _tensor(self, v):
-        if isinstance(v, torch.Tensor):
-            # the operators and bases live on self.device: a tensor
-            # elsewhere is the caller's mistake, never moved
-            dev = self.device
-            if v.device.type != dev.type or (
-                    dev.index is not None and v.device.index != dev.index):
-                raise ValueError(
-                    f"RMShellModel was built on {dev} but an input lies on "
-                    f"{v.device}: pass device= to RMShellModel")
-            return v.to(dtype=self.dtype)
-        return torch.as_tensor(np.asarray(v), dtype=self.dtype,
-                               device=self.device)
+        # the operators and bases live on self.device
+        return tensor_on(v, self.device, "RMShellModel", self.dtype)
 
     def _reorder(self, v, idx):
         """A caller-ordered input in FE order: v[idx] per node or cell (a

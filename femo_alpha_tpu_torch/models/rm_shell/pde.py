@@ -15,6 +15,8 @@ space, MID reference plane, isotropic material):
 - stress recovery: through-thickness displacement u(xi2) = u_mid -
   xi2 (E2 x theta), plane-stress von Mises without transverse shear; its
   p-norm functional and its DG1 projection
+- the transient shell's forms: inertia 0.5 rho h (|u|^2 + h_m^2 |theta|^2)
+  and the self-weight load
 
 The force-to-pressure map, the BOT reference plane, nodal (CG1) material
 fields with their H1 regularization and composite laminates are not ported
@@ -225,10 +227,63 @@ class RMShellPDE:
         return FemForm(self.W, self.make_elastic_energy_kernel(),
                        kind="energy", param_specs=dict(self.param_specs))
 
+    def inertia_form(self, rho_is_param=True, with_uhat=False):
+        """Shell inertia as an energy, 0.5 rho h (|u|^2 + h_m^2 |theta|^2)
+        with h_m the cell diameter: its Hessian is the mass operator. The
+        density is the DG0/CG1 field "density" or, with
+        rho_is_param=False, the scalar "rho" (passed to every cell). The
+        J(uhat) pullback of the modal path (with_uhat=True) is not
+        ported."""
+        if with_uhat:
+            raise _not_ported("inertia_form(with_uhat=True) (the modal path)")
+
+        def kern(u_cell, x_cell, p):
+            R = self._rules["inplane"]
+            ud, th = self._split(u_cell)
+            geo = surface_geometry(x_cell, R["geom_dphi"])
+            u_q = R["d_phi"] @ ud
+            th_q = R["r_phi"] @ th
+            hq = _interp(self.VT, R["t_phi"], p["thickness"])
+            rhoq = (_interp(self.VT, R["t_phi"], p["density"])
+                    if rho_is_param else p["rho"])
+            hm = cell_diameter(x_cell)
+            dens = rhoq * hq * (torch.sum(u_q ** 2, dim=1)
+                                + hm ** 2 * torch.sum(th_q ** 2, dim=1))
+            return torch.sum(0.5 * dens * R["w"] * geo["dA"])
+
+        specs = {"thickness": self.VT}
+        if rho_is_param:
+            specs["density"] = self.VT
+        else:
+            specs["rho"] = None
+        return FemForm(self.W, kern, kind="energy", param_specs=specs)
+
+    def self_weight_load(self, g_z):
+        """Self-weight load energy -int rho h g_z u_z dx: its residual is
+        the (negative) load vector."""
+
+        def kern(u_cell, x_cell, p):
+            R = self._rules["inplane"]
+            ud, _ = self._split(u_cell)
+            geo = surface_geometry(x_cell, R["geom_dphi"])
+            u_q = R["d_phi"] @ ud
+            hq = _interp(self.VT, R["t_phi"], p["thickness"])
+            rhoq = _interp(self.VT, R["t_phi"], p["density"])
+            return -torch.sum(rhoq * hq * g_z * u_q[:, 2] * R["w"]
+                              * geo["dA"])
+
+        return FemForm(self.W, kern, kind="energy",
+                       param_specs={"thickness": self.VT,
+                                    "density": self.VT})
+
     # ------------------------------------------------------------- outputs
-    def regularization_kernel(self):
-        """L2 thickness regularization 0.5e-2 int h^2 dx (element-wise
-        thickness; the H1 form of nodal thickness is not ported)."""
+    def regularization_kernel(self, kind):
+        """Thickness regularization energy of `kind`: "L2" is
+        0.5e-2 int h^2 dx (element-wise thickness); "H1", the gradient form
+        of nodal thickness, is not ported."""
+        if kind != "L2":
+            raise _not_ported(f"regularization_kernel({kind!r}) (the H1 "
+                              "regularization of nodal thickness)")
         alpha1 = 1e-2
 
         def kern(u_cell, x_cell, p):
@@ -243,7 +298,7 @@ class RMShellPDE:
         """int |u_mid|^2 J(uhat) dx + regularization."""
         if not self.element_wise_material:
             raise _not_ported("the H1 regularization of nodal thickness")
-        reg = self.regularization_kernel()
+        reg = self.regularization_kernel("L2")
         nv = self.nv
 
         def kern(u_cell, x_cell, p):

@@ -10,6 +10,9 @@ coarse inverse):
 - the smoother is Chebyshev over a block-Jacobi split, targeting
   [lmin_ratio*lmax, lmax] with lmax from a CG-Lanczos estimate
 - the coarsest level is solved with a Jacobi-scaled dense inverse
+- the setup's assemblies (block-Jacobi blocks, coarse matrix) sum in a
+  fixed order, never with atomics, so one design always gives the same
+  V-cycle bits
 
 The W-cycle, the Schwarz smoother, the cell-major layout and the generic
 (index-table) transfer are not ported yet (ROADMAP.md).
@@ -17,6 +20,7 @@ The W-cycle, the Schwarz smoother, the cell-major layout and the generic
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -209,10 +213,47 @@ def _batch_inv(D):
     return torch.linalg.inv(D)
 
 
+def _sum_plan(space, key, target, device):
+    """The fixed summation order of a scatter-add onto `target` (int64,
+    one target per source entry), cached on the space per key and device:
+    (uniq, inv) with uniq the distinct targets and inv (len(uniq), c) the
+    source positions of each, increasing, padded with one past the last
+    source (a zero)."""
+    ck = (key, str(device))
+    plan = space._index_cache.get(ck)
+    if plan is None:
+        target = np.asarray(target, dtype=np.int64).reshape(-1)
+        order = np.argsort(target, kind="stable")
+        uniq, starts, counts = np.unique(target[order], return_index=True,
+                                         return_counts=True)
+        inv = np.full((len(uniq), int(counts.max())), len(target),
+                      dtype=np.int64)
+        rank = np.arange(len(target)) - np.repeat(starts, counts)
+        inv[np.repeat(np.arange(len(uniq)), counts), rank] = order
+        plan = space._index_cache[ck] = (torch.as_tensor(uniq, device=device),
+                                         torch.as_tensor(inv, device=device))
+    return plan
+
+
+def _fixed_order_scatter(vals, plan, size):
+    """out (size, ...) with out[uniq[s]] = the sum of vals[inv[s, k]] over k
+    in order: index_add_ without atomics, so the same inputs give the same
+    bits on the card."""
+    uniq, inv = plan
+    src = torch.cat([vals, vals.new_zeros((1,) + vals.shape[1:])])
+    acc = src[inv[:, 0]]
+    for k in range(1, inv.shape[1]):
+        acc = acc + src[inv[:, k]]
+    out = vals.new_zeros((size,) + vals.shape[1:])
+    out[uniq] = acc
+    return out
+
+
 def block_jacobi_arrays(Ae, W, free):
     """Per-node value_size x value_size inverted diagonal blocks for each
     subspace of a MixedSpace, from cell-major element matrices
-    (nc, nd, nd). Returns a list of (n_scalar, bs, bs) arrays."""
+    (nc, nd, nd), assembled in a fixed order. Returns a list of
+    (n_scalar, bs, bs) arrays."""
     nc = Ae.shape[0]
     out = []
     for i, sub in enumerate(W.subspaces):
@@ -223,10 +264,9 @@ def block_jacobi_arrays(Ae, W, free):
             nc, nds, bs, nds, bs)
         # node-diagonal blocks: (nc, bs, bs, nds) -> (nc, nds, bs, bs)
         blocks = torch.diagonal(subA, dim1=1, dim2=3).permute(0, 3, 1, 2)
-        idx = torch.as_tensor(sub.scalar_dofmap.reshape(-1),
-                              dtype=torch.int64, device=Ae.device)
-        D = Ae.new_zeros((sub.n_scalar_dofs, bs * bs)).index_add_(
-            0, idx, blocks.reshape(nc * nds, bs * bs)
+        plan = _sum_plan(sub, "node_blocks", sub.scalar_dofmap, Ae.device)
+        D = _fixed_order_scatter(
+            blocks.reshape(nc * nds, bs * bs), plan, sub.n_scalar_dofs
         ).reshape(sub.n_scalar_dofs, bs, bs)
         o_g = int(W.offsets[i])
         fm = free[o_g: o_g + sub.n_dofs].reshape(sub.n_scalar_dofs, bs)
@@ -322,13 +362,15 @@ def chebyshev_smooth(matvec, Minv, lmax, b, x, degree=2, lmin_ratio=0.25):
     return x
 
 
-def dense_constrained(Ae, dofmap, n, free):
-    """Dense assembly of cell-major element matrices (nc, nd, nd) with BC
-    rows/cols eliminated (identity on constrained dofs): the coarsest-level
-    operator. dofmap: (nc, nd) int64 tensor on Ae's device."""
-    idx = dofmap[:, :, None] * n + dofmap[:, None, :]
-    A = Ae.new_zeros(n * n).index_add_(0, idx.reshape(-1), Ae.reshape(-1))
-    A = A.reshape(n, n)
+def dense_constrained(Ae, W, free):
+    """Dense assembly, in a fixed order, of cell-major element matrices
+    (nc, nd, nd) on the space W with BC rows/cols eliminated (identity on
+    constrained dofs): the coarsest-level operator."""
+    n = int(W.n_dofs)
+    dm = np.asarray(W.dofmap, dtype=np.int64)
+    plan = _sum_plan(W, "dense", dm[:, :, None] * n + dm[:, None, :],
+                     Ae.device)
+    A = _fixed_order_scatter(Ae.reshape(-1), plan, n * n).reshape(n, n)
     return A * free[:, None] * free[None, :] + torch.diag(1.0 - free)
 
 
@@ -400,10 +442,7 @@ class GeometricMG:
                     iters=self.power_iters))
                 p = lev["coarsen"](p)
             else:
-                n = int(W.n_dofs)
-                dm = torch.as_tensor(W.dofmap, dtype=torch.int64,
-                                     device=Ae.device)
-                A = dense_constrained(Ae.permute(2, 0, 1), dm, n, free_k)
+                A = dense_constrained(Ae.permute(2, 0, 1), W, free_k)
                 s = 1.0 / torch.sqrt(torch.abs(torch.diagonal(A)))
                 state["coarse_inv"] = torch.linalg.inv(
                     A * s[:, None] * s[None, :])

@@ -58,14 +58,14 @@ KERNELS = {"cmv_cell_pass": "cmv_cell_pass_kernel",
            "affine_combine": "affine_combine_kernel"}
 
 
-def _label_spans():
-    """Wrap each entry point of SPANS in a record_function span."""
+def _label_spans(spans=SPANS):
+    """Wrap each entry point of `spans` in a record_function span."""
     import functools
     import importlib
 
     import torch
 
-    for mod_name, attr, label in SPANS:
+    for mod_name, attr, label in spans:
         owner = importlib.import_module(mod_name)
         *path, name = attr.split(".")
         for p in path:

@@ -4,8 +4,10 @@ two smoothed-level shapes, and bit for bit from run to run), the launch
 counters, the card as the default device, the slice on the card
 against the same slice on the CPU, and the default aircraft configuration:
 the band Cholesky factor on the card against the CPU path, and a penalty
-wing model on the card against the same model on the CPU. They skip
-without a card. The
+wing model on the card against the same model on the CPU; the transient
+shell (PlateSim, MG) on the card against the CPU, its checkpointed
+segments recomputed bit for bit and its V-cycle setup repeated bit for
+bit. They skip without a card. The
 file imports no jax, so on a machine without the JAX package it runs on
 its own:
 
@@ -294,3 +296,84 @@ def test_wing_model_on_card_matches_cpu(cuda):
         assert abs(res["cuda"][k] / res["cpu"][k] - 1) <= 1e-7, k
     assert _rel(res["cuda"]["u"], res["cpu"]["u"]) <= 1e-8
     assert _rel(res["cuda"]["grad"], res["cpu"]["grad"]) <= 1e-6
+
+
+def _transient(dev, launches=None):
+    """The 16x8 transient (MG, two levels, 6 steps) on `dev`: simulate_outputs
+    + backward of total_strain_energy. Returns (energy, w_final, grad)."""
+    from femo_alpha_tpu_torch.mesh import StructuredQuadMesh
+    from femo_alpha_tpu_torch.models.dynamic_rm_shell import PlateSim
+
+    sim = PlateSim(StructuredQuadMesh(16, 8, (0, 0), (10.0, 2.0), gdim=3),
+                   4.32e8, 0.0, 10.0, dt=0.005, Nsteps=6,
+                   element_wise_thickness=True, mg_coarsest_cells=32,
+                   device=dev)
+    assert sim.solver_method == "mg" and len(sim.mg.levels) == 2
+    rng = np.random.default_rng(0)
+    th = torch.as_tensor(0.2 * (1 + 0.1 * rng.uniform(-1, 1, sim.num_var)),
+                         device=dev).requires_grad_(True)
+    fh = torch.zeros((7, sim.W_f.n_dofs), dtype=torch.float64, device=dev)
+    fh[:, 2::3] = 1000.0
+    ck.reset_launch_counts()
+    out = sim.simulate_outputs(th, fh, segment_len=3)
+    out["total_strain_energy"].backward()
+    if launches is not None:
+        launches.update(ck.launch_counts())
+    return (float(out["total_strain_energy"].detach()),
+            out["w_final"].detach().cpu(), th.grad.cpu(), sim)
+
+
+def test_transient_on_card_matches_cpu(cuda):
+    """PlateSim (16x8, MG) on the card against the CPU: the energy, the
+    final state and the thickness gradient; the card ran the fused
+    operator and K2, never the standalone K1."""
+    launched = {}
+    e_c, w_c, g_c, _ = _transient("cpu")
+    e_g, w_g, g_g, _ = _transient("cuda", launched)
+    assert launched["constrained_matvec_T"] > 0
+    assert launched["affine_combine"] > 0
+    assert launched["cell_matvec_T"] == 0
+    assert abs(e_g / e_c - 1) <= 1e-9
+    assert _rel(w_g, w_c) <= 1e-8
+    assert _rel(g_g, g_c) <= 1e-7
+
+
+def test_transient_checkpoint_recompute_is_bitwise(cuda, monkeypatch):
+    """Recomputing a checkpointed segment in the backward reproduces every
+    step's right-hand side and solution bit for bit (the gradient then
+    equals the history path's)."""
+    from femo_alpha_tpu_torch.models.dynamic_rm_shell import plate_sim
+
+    solves = []
+    solve = plate_sim._StepOperators.solve
+
+    def recording(self, b, phase):
+        w = solve(self, b, phase)
+        solves.append((phase, b.clone(), w.clone()))
+        return w
+
+    monkeypatch.setattr(plate_sim._StepOperators, "solve", recording)
+    _transient("cuda")
+    fwd = [(b, w) for ph, b, w in solves if ph == "forward"]
+    assert len(fwd) == 12  # 6 steps, then 6 recomputed in the backward
+    first, again = fwd[:6], fwd[6:]
+    for b, w in again:
+        assert any(torch.equal(b, b0) and torch.equal(w, w0)
+                   for b0, w0 in first)
+
+
+def test_mg_setup_is_bitwise_repeatable(cuda):
+    """Two V-cycle setups of one design give the same bits (the block-Jacobi
+    blocks and the coarse matrix are summed in a fixed order, without
+    atomics), so two simulations of one design take the same CG path."""
+    _, _, _, sim = _transient("cuda")
+    th = torch.full((sim.num_var,), 0.2, dtype=torch.float64, device="cuda")
+    Ae = ck.affine_combine(sim._bases(th)[2], th, (1, 3))
+    s1, s2 = (sim.mg.setup({"thickness": th}, Ae0=Ae) for _ in range(2))
+    for a, b in zip(s1["blocks"][0], s2["blocks"][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(torch.stack(s1["lmax"]), torch.stack(s2["lmax"]))
+    assert torch.equal(s1["coarse_inv"], s2["coarse_inv"])
+    v = torch.randn(sim.fe_dofs, generator=cuda, device="cuda",
+                    dtype=torch.float64)
+    assert torch.equal(sim.mg.apply(s1, v), sim.mg.apply(s2, v))

@@ -27,8 +27,12 @@ def test_every_module_imports_without_jax():
     mods = _all_modules()
     assert "femo_alpha_tpu_torch.assembly.cuda_kernels" in mods
     assert "femo_alpha_tpu_torch.models.rm_shell.model" in mods
-    # the default aircraft configuration's modules, among them
-    for m in ("io.gmsh", "mesh.wing", "solvers.band", "assembly.facets"):
+    # the default aircraft configuration's and the transient shell's
+    # modules, among them
+    for m in ("io.gmsh", "mesh.wing", "solvers.band", "assembly.facets",
+              "models.dynamic_rm_shell", "models.dynamic_rm_shell.plate_sim",
+              "models.dynamic_rm_shell.mg", "spaces.pointeval",
+              "adjoint.check"):
         assert "femo_alpha_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -111,3 +115,19 @@ def test_unported_configurations_raise(what, monkeypatch):
                            np.full(mesh.n_cells, 1e9),
                            np.full(mesh.n_cells, 0.3),
                            np.ones(mesh.n_cells), is_pressure=False)
+
+
+def test_platesim_without_a_card_raises(monkeypatch):
+    """PlateSim takes the card when `device` is not given and raises where
+    there is none (the test takes the card away itself); nodal thickness
+    is not ported and raises before the device is looked at."""
+    from femo_alpha_tpu_torch.mesh import createRectangleMesh
+    from femo_alpha_tpu_torch.models.dynamic_rm_shell import PlateSim
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = createRectangleMesh(4, 2, (0, 0), (10.0, 2.0), "quad", gdim=3)
+    kw = dict(E=4.32e8, nu=0.0, rho=10.0, dt=0.01, Nsteps=2)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        PlateSim(mesh, element_wise_thickness=True, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        PlateSim(mesh, **kw)
