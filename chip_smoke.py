@@ -32,7 +32,19 @@ MG-preconditioned step solves — requires that it went through the fused
 operator and K2 and never through the standalone K1, and checks it against
 the JAX package's digits, its own history path, a dense f64 Cholesky of
 the step operator and a central difference, and both kernels at its
-shapes against their twins. Each path is driven with the launch counts set
+shapes against their twins. Then the design study of
+examples/advanced_examples/pav_shell_opt/ex_pav_wing_thickness_opt.py on
+the same wing — OptimizationProblem (scipy SLSQP, autograd gradients),
+min mass s.t. aggregated stress, OPT_MAXITER iterations — checked
+against the JAX package's objective history, final mass and aggregated
+stress and nit / nfev / njev. Last, modal analysis of the 128x32 plate
+— evaluate_modal, 6 modes by LOBPCG preconditioned by the MG V-cycle —
+checked against the JAX package's eigenvalues, a host eigsh of the
+same pencil, the residual norms, M-orthonormality and a central
+difference of the modal_eigenvalues gradient; both new paths must go
+through the fused operator and K2. Every path's kernel line gives each
+kernel's time beside its twin's, its bound and one PyTorch library call
+of the same function. Each path is driven with the launch counts set
 to 0 just before it and read just after. Each phase
 prints one line; the second-to-last lines are the kernel table (JSON) and
 the card name and power limit (nvidia-smi), the last line is
@@ -82,6 +94,27 @@ WING_FD_BAR = 1e-5
 TRANSIENT_DIGITS = {"total_strain_energy": (1.146077323358996e+01, 1e-8),
                     "grad_norm": (1.042655141329599e+01, 1e-6)}
 TRANSIENT_FD_BAR = 1e-5
+
+# the JAX package (femo_alpha_tpu OptimizationProblem, scipy SLSQP) on the
+# PAV wing thickness study of phase_opt at maxiter OPT_MAXITER, scipy
+# 1.17.0 (tools/opt_reference_digits.py): the scaled objective at each
+# iteration, mass and aggregated stress at the returned x, nit/nfev/njev
+OPT_MAXITER = 3
+OPT_DIGITS = {"history": (2.022917068287587e-01, 2.042828747616884e-01,
+                          2.055208553469486e-01),
+              "mass": 2.719888025065152e+02,
+              "aggregated_stress": 6.100575256388704e+08,
+              "nit": 3, "nfev": 7, "njev": 4}
+OPT_BAR = 1e-6
+# the JAX package (evaluate_modal, LOBPCG + MG, f64) on the 128x32 bench
+# plate at the inputs of phase_modal (tools/modal_reference_digits.py)
+MODAL_DIGITS = (1.778733487102651e+01, 6.952042421540814e+02,
+                1.691518092591724e+03, 2.112916068067068e+03,
+                5.408417085250989e+03, 1.945288826967421e+04)
+MODAL_BAR = 1e-8            # eigenvalues vs the JAX digits and vs eigsh
+MODAL_RES_BAR = 1e-5        # LOBPCG residual norms (Ritz values ~ res^2)
+MODAL_ORTHO_BAR = 1e-8      # max |X^T M X - I|
+MODAL_FD_BAR = 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3, and the rates outside the
 # tensor cores, which none of these kernels use
@@ -282,6 +315,69 @@ def _constrained_csr(Ae, dofmap, free):
                       shape=(n, n))
     return (sp.diags(free) @ K @ sp.diags(free)
             + sp.diags(1.0 - free)).tocsr()
+
+
+def fused_case(ck, label, Ae, spec, free, x):
+    """The fused operator at one path's shape: its error against the plain
+    twin on x, its time, the twin's, its bound and the cuSPARSE product of
+    the same constrained matrix (the library call). Returns (error, case
+    string)."""
+    import torch
+
+    dm_T, inv = spec.lane_tables(Ae.device)
+    op = ck.constrained_matvec_T(Ae, free, dm_T, inv)
+
+    def plain():
+        return ck.constrained_matvec_T_plain(Ae, x, free, dm_T, inv)
+
+    y, yp = op(x), plain()
+    torch.cuda.synchronize()
+    err = rel_norm(y, yp)
+    B = _constrained_csr(Ae.permute(2, 0, 1).cpu().numpy(), spec.dofmap,
+                         free.cpu().numpy())
+    csr = torch.sparse_csr_tensor(
+        torch.as_tensor(B.indptr, dtype=torch.int32, device="cuda"),
+        torch.as_tensor(B.indices, dtype=torch.int32, device="cuda"),
+        torch.as_tensor(B.data, dtype=Ae.dtype, device="cuda"),
+        size=B.shape)
+    nd, _, nc = Ae.shape
+    n = free.shape[0]
+    nbytes = (Ae.nbytes + x.nbytes + free.nbytes + y.nbytes + dm_T.nbytes
+              + inv.nbytes)
+    b = bound(nbytes, 2 * nd * nd * nc + n * inv.shape[1] + 3 * n,
+              str(Ae.dtype).split(".")[-1])
+    return err, (f"{label}/nc={nc}:err={err:.2e},"
+                 f"ms={cuda_ms(lambda: op(x), 100):.5f},"
+                 f"plain_ms={cuda_ms(plain, 20):.5f},"
+                 f"bound_ms={b['bound_ms']:.5f},"
+                 f"library_ms={cuda_ms(lambda: csr @ x, 100):.5f}")
+
+
+def k2_case(ck, label, B, theta, powers):
+    """K2 at one path's shape: error against the twin, time, the twin's,
+    the bound and the one PyTorch call of the same function (theta * B[0]
+    for K = 1, einsum for K = 2). Returns (error, case string)."""
+    import torch
+
+    Ak = ck.affine_combine(B, theta, powers)
+    Ap = ck.affine_combine_plain(B, theta, powers)
+    torch.cuda.synchronize()
+    err = rel_norm(Ak, Ap)
+    K, nd, _, nc = B.shape
+    coef = torch.stack([theta ** p for p in powers])  # outside the timing
+    if K == 1:
+        def lib():
+            return coef[0] * B[0]
+    else:
+        def lib():
+            return torch.einsum("kc,kijc->ijc", coef, B)
+    b = bound(B.nbytes + theta.nbytes + Ak.nbytes,
+              (2 * K - 1) * nd * nd * nc, str(B.dtype).split(".")[-1])
+    ms = cuda_ms(lambda: ck.affine_combine(B, theta, powers), 50)
+    pms = cuda_ms(lambda: ck.affine_combine_plain(B, theta, powers), 50)
+    return err, (f"{label}/K={K}/nc={nc}:err={err:.2e},ms={ms:.5f},"
+                 f"plain_ms={pms:.5f},bound_ms={b['bound_ms']:.5f},"
+                 f"library_ms={cuda_ms(lib, 50):.5f}")
 
 
 def phase_k1_fused(ck):
@@ -679,30 +775,13 @@ def phase_wing(ck):
         x = torch.randn(n, generator=torch.Generator(device="cuda")
                         .manual_seed(3), device="cuda", dtype=torch.float64)
         ones = torch.ones(n, dtype=torch.float64, device="cuda")
-        for label, Ae, spec in (("cell", ops[0], pde._op_specs[0]),
-                                ("facet", ops[1], pde._op_specs[1])):
-            dm_T, inv = spec.lane_tables(Ae.device)
-            op = ck.constrained_matvec_T(Ae, ones, dm_T, inv)
-
-            def plain(Ae=Ae, dm_T=dm_T, inv=inv):
-                return ck.constrained_matvec_T_plain(Ae, x, ones, dm_T, inv)
-
-            y, yp = op(x), plain()
-            torch.cuda.synchronize()
-            kerr[f"fused/{label}"] = err = rel_norm(y, yp)
-            kcases.append(f"fused/{label}/nc={Ae.shape[2]}:err={err:.2e},"
-                          f"ms={cuda_ms(lambda: op(x), 100):.5f},"
-                          f"plain_ms={cuda_ms(plain, 20):.5f}")
+        for label, Ae, spec in (("fused/cell", ops[0], pde._op_specs[0]),
+                                ("fused/facet", ops[1], pde._op_specs[1])):
+            kerr[label], case = fused_case(ck, label, Ae, spec, ones, x)
+            kcases.append(case)
         basis = pde.element_matrices_fn.prepare(params)
-        Ak = ck.affine_combine(basis, th0, (1, 3))
-        Ap = ck.affine_combine_plain(basis, th0, (1, 3))
-        torch.cuda.synchronize()
-        kerr["k2"] = err = rel_norm(Ak, Ap)
-        kcases.append(
-            f"k2/nc={nel}:err={err:.2e},ms="
-            f"{cuda_ms(lambda: ck.affine_combine(basis, th0, (1, 3)), 50):.5f},"
-            f"plain_ms="
-            f"{cuda_ms(lambda: ck.affine_combine_plain(basis, th0, (1, 3)), 50):.5f}")
+        kerr["k2"], case = k2_case(ck, "k2", basis, th0, (1, 3))
+        kcases.append(case)
     t0 = time.perf_counter()
     lu = spla.splu(B.tocsc())
     ud = lu.solve(b)
@@ -885,30 +964,15 @@ def phase_transient(ck):
              torch.ones(n, dtype=torch.float64, device="cuda")),
             ("fused/mask", lev1["make_Ae"]({"thickness": th1}),
              lev1["space"], lev1["free"])):
-        label = f"{label}/nc={Ae.shape[2]}"
         x = torch.randn(W.n_dofs, generator=g, device="cuda",
                         dtype=torch.float64)
-        dm_T, inv = W.lane_tables(Ae.device)
-        op = ck.constrained_matvec_T(Ae, free, dm_T, inv)
-
-        def plain(Ae=Ae, x=x, free=free, dm_T=dm_T, inv=inv):
-            return ck.constrained_matvec_T_plain(Ae, x, free, dm_T, inv)
-
-        y, yp = op(x), plain()
-        torch.cuda.synchronize()
-        kerr[label] = err = rel_norm(y, yp)
-        kcases.append(f"{label}:err={err:.2e},"
-                      f"ms={cuda_ms(lambda: op(x), 100):.5f},"
-                      f"plain_ms={cuda_ms(plain, 20):.5f}")
-    for label, B, powers in ((f"k2/K=2/nc={nel}", BA, (1, 3)),
-                             (f"k2/K=1/nc={nel}", BM, (1,))):
-        Ak = ck.affine_combine(B, th0, powers)
-        Ap = ck.affine_combine_plain(B, th0, powers)
-        torch.cuda.synchronize()
-        kerr[label] = err = rel_norm(Ak, Ap)
-        ms = cuda_ms(lambda: ck.affine_combine(B, th0, powers), 50)
-        pms = cuda_ms(lambda: ck.affine_combine_plain(B, th0, powers), 50)
-        kcases.append(f"{label}:err={err:.2e},ms={ms:.5f},plain_ms={pms:.5f}")
+        err, case = fused_case(ck, label, Ae, W, free, x)
+        kerr[case.split(":")[0]] = err
+        kcases.append(case)
+    for B, powers in ((BA, (1, 3)), (BM, (1,))):
+        err, case = k2_case(ck, "k2", B, th0, powers)
+        kerr[case.split(":")[0]] = err
+        kcases.append(case)
 
     finite = (bool(torch.isfinite(out0["w_final"]).all())
               and bool(torch.isfinite(g0).all()))
@@ -953,6 +1017,268 @@ def phase_transient(ck):
     return launches
 
 
+def phase_opt(ck):
+    """The reference's default aircraft study on the card: the problem of
+    examples/advanced_examples/pav_shell_opt/ex_pav_wing_thickness_opt.py
+    (min mass/mass0 s.t. aggregated stress <= 503e6/1.5, 2,388
+    thicknesses in [0.001, 0.02] from 0.005, ftol 1e-8) through
+    OptimizationProblem / scipy SLSQP for OPT_MAXITER iterations."""
+    import numpy as np
+    import scipy
+    import torch
+
+    from femo_alpha_tpu_torch.mesh import readFEAMesh
+    from femo_alpha_tpu_torch.models import RMShellModel
+    from femo_alpha_tpu_torch.opt import OptimizationProblem
+
+    t_phase = time.perf_counter()
+    sigma_y, safety, h0 = 503.0e6, 1.5, 0.005
+    mesh = readFEAMesh(WING_MESH)
+    nel = mesh.n_cells
+    # no device=: the model and the problem take the card by default
+    model = RMShellModel(mesh, shell_bc_func=lambda x: x[:, 1] < 1e-9,
+                         element_wise_material=True, record=False,
+                         mesh_tags={t: np.asarray(c)
+                                    for t, c in mesh.cell_tags.items()})
+    P, E, nu, rho = _wing_inputs(mesh, torch)
+
+    def ev(dv):
+        return model.evaluate(P, thickness=dv["thickness"], E=E, nu=nu,
+                              density=rho, is_pressure=True)
+
+    mass0 = float(ev({"thickness": torch.full(
+        (nel,), h0, dtype=torch.float64, device="cuda")}).mass)
+    prob = OptimizationProblem(ev)
+    if prob.device.type != "cuda":
+        fail(f"OptimizationProblem without device= runs on {prob.device}")
+    prob.add_design_variable("thickness", h0 * np.ones(nel), lower=0.001,
+                             upper=0.02)
+    prob.add_constraint("aggregated_stress", upper=sigma_y / safety,
+                        scaler=safety / sigma_y)
+    prob.set_objective("mass", scaler=1.0 / mass0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    dvs, res = prob.solve(maxiter=OPT_MAXITER, ftol=1e-8, report=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if min(launches["constrained_matvec_T"], launches["affine_combine"]) <= 0:
+        fail(f"opt: a kernel of the path was never launched: {launches}")
+    with torch.no_grad():
+        out = ev({"thickness": dvs["thickness"]})
+        got = {"mass": float(out.mass),
+               "aggregated_stress": float(out.aggregated_stress)}
+    hist = list(prob.history)
+    nit = max(res.nit, 1)
+    errs = {f"history[{i}]": abs(a / b - 1.0) for i, (a, b) in
+            enumerate(zip(hist, OPT_DIGITS["history"]))}
+    errs.update({k: abs(got[k] / OPT_DIGITS[k] - 1.0) for k in got})
+    th = dvs["thickness"]
+    say("opt", mesh=os.path.basename(WING_MESH), cells=nel,
+        n_dofs=model.shell_pde.W.n_dofs, maxiter=OPT_MAXITER,
+        scipy=scipy.__version__, message=repr(res.message),
+        nit=res.nit, nfev=res.nfev, njev=res.njev,
+        history=json.dumps([f"{v:.15e}" for v in hist]),
+        **{k: f"{v:.15e}" for k, v in got.items()},
+        rel_err_vs_jax=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}),
+        wall_s=f"{wall:.3f}", wall_per_iter_s=f"{wall / nit:.3f}",
+        model_s_per_iter=f"{prob.model_seconds / nit:.3f}",
+        slsqp_host_s_per_iter=f"{(wall - prob.model_seconds) / nit:.3f}",
+        evaluate_per_iter=f"{prob.counts['evaluate'] / nit:.2f}",
+        backward_per_iter=f"{prob.counts['backward'] / nit:.2f}",
+        launches=json.dumps(launches),
+        launches_per_iter=json.dumps({k: round(v / nit, 2)
+                                      for k, v in launches.items()}),
+        peak_mem_gb=f"{peak_gb:.3f}",
+        h_range=f"[{float(th.min()):.6f},{float(th.max()):.6f}]",
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if not all(np.isfinite(hist)) or len(hist) != OPT_MAXITER:
+        fail(f"opt: history {hist}")
+    for k, e in errs.items():
+        if not e <= OPT_BAR:
+            fail(f"opt {k}: rel err {e:.3e} vs the JAX package's digits "
+                 f"(bar {OPT_BAR})")
+    for k in ("nit", "nfev", "njev"):
+        if getattr(res, k) != OPT_DIGITS[k]:
+            fail(f"opt {k} {getattr(res, k)} vs the JAX package's "
+                 f"{OPT_DIGITS[k]}")
+    return launches
+
+
+def phase_modal(ck):
+    """Natural frequencies of the 128x32 bench plate on the card:
+    RMShellModel.evaluate_modal (LOBPCG preconditioned by the MG V-cycle)
+    and the backward of modal_eigenvalues."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from femo_alpha_tpu_torch.mesh import createRectangleMesh
+    from femo_alpha_tpu_torch.models import RMShellModel
+
+    t_phase = time.perf_counter()
+    mesh = createRectangleMesh(128, 32, (0, 0), (10.0, 2.0), "quad", gdim=3)
+    nel = mesh.n_cells
+    # no device=: the model takes the card by default
+    model = RMShellModel(mesh, shell_bc_func=lambda x: x[:, 0] < 1e-12,
+                         element_wise_material=True, PENALTY_BC=False)
+    if model.device.type != "cuda":
+        fail(f"RMShellModel without device= runs on {model.device}")
+    pde = model.shell_pde
+    W = pde.W
+    n = W.n_dofs
+    kw = dict(dtype=torch.float64, device="cuda")
+    th0 = torch.full((nel,), 0.2, **kw)
+    E = torch.full((nel,), 4.32e8, **kw)
+    nu = torch.zeros(nel, **kw)
+    rho = torch.full((nel,), 100.0, **kw)
+    opts = dict(n_modes=6, solver="lobpcg", tol=1e-8, maxiter=200, seed=0)
+    vcycles = [0, 0.0]  # count, host seconds (no synchronize)
+    mg_apply = model.mg.apply
+
+    def counted(state, b):
+        vcycles[0] += 1
+        t = time.perf_counter()
+        y = mg_apply(state, b)
+        vcycles[1] += time.perf_counter() - t
+        return y
+
+    model.mg.apply = counted
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    out, first_s = timed(lambda: model.evaluate_modal(th0, E, nu, rho,
+                                                      **opts))
+    launches = ck.launch_counts()
+    vc_first = vcycles[0]
+    _, warm_s = timed(lambda: model.evaluate_modal(th0, E, nu, rho, **opts))
+    # the warm call again, split: the eigensolve (of it, the V-cycles'
+    # host time) and the autograd Rayleigh quotients
+    vcycles[1] = 0.0
+    (Xw, _, _), solve_s = timed(lambda: model._modal_modes(
+        th0, E, nu, rho, 6, 1e-8, 200, 0, "lobpcg"))
+    vc_host_s = vcycles[1]
+    _, rayleigh_s = timed(lambda: model._modal_rayleigh(Xw, th0, E, nu, rho))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if min(launches["constrained_matvec_T"], launches["affine_combine"]) <= 0:
+        fail(f"modal: a kernel of the path was never launched: {launches}")
+    if launches["cell_matvec_T"] != 0:
+        fail(f"modal: the standalone K1 ran: {launches}")
+    lam = out.eigenvalues.detach()
+    X = out.modes
+    res = out.res_norms
+
+    # M-orthonormality, K and M assembled from the port's own element
+    # matrices, and an independent host eigensolve of the same pencil
+    with torch.no_grad():
+        p, mp = model._modal_fe_params()(th0, E, nu, rho)
+        ipde = model.fea.states["disp_solid"].pde
+        zero = torch.zeros(n, **kw)
+        ops = ipde._assemble_ops(zero, p)
+        Me = model._modal_mass()[1](None, mp)
+        ones = torch.ones(n, **kw)
+        dm_T, inv = W.lane_tables(Me.device)
+        Mop = ck.constrained_matvec_T(Me, ones, dm_T, inv)
+        MX = torch.stack([Mop(X[:, i].contiguous()) for i in range(6)], 1)
+        ortho = float((X.T @ MX - torch.eye(6, **kw)).abs().max())
+        Kh = _penalty_csr(ops, ipde._op_specs, n)
+        Mh = _penalty_csr([Me], [W], n)
+        free = np.nonzero(ipde.free_mask.cpu().numpy() > 0)[0]
+    t0 = time.perf_counter()
+    ev = np.sort(spla.eigsh(Kh[free][:, free].tocsc(), k=6,
+                            M=Mh[free][:, free].tocsc(), sigma=0.0,
+                            which="LM", return_eigenvectors=False))
+    eigsh_s = time.perf_counter() - t0
+    lam_h = lam.cpu().numpy()
+    err_eigsh = float(np.max(np.abs(lam_h / ev - 1.0)))
+    err_jax = float(np.max(np.abs(lam_h / np.asarray(MODAL_DIGITS) - 1.0)))
+
+    # d lambda_1 / d h along a seeded direction against a central
+    # difference of two full re-solves
+    d = torch.as_tensor(np.random.default_rng(0).standard_normal(nel),
+                        **kw)
+    th = th0.clone().requires_grad_(True)
+    one = dict(n_modes=1, tol=1e-8, maxiter=200, seed=0)
+
+    def lam1_and_grad():
+        lam1 = model.modal_eigenvalues(th, E, nu, rho, **one)[0]
+        return lam1.detach(), torch.autograd.grad(lam1, th)[0]
+
+    (lam1, grad), grad_s = timed(lam1_and_grad)
+    eps = 1e-4 * 0.2
+    with torch.no_grad():
+        lp = float(model.modal_eigenvalues(th0 + eps * d, E, nu, rho,
+                                           **one)[0])
+        lm = float(model.modal_eigenvalues(th0 - eps * d, E, nu, rho,
+                                           **one)[0])
+    fd = (lp - lm) / (2 * eps)
+    ad = float(torch.dot(grad, d))
+    fd_err = abs(fd - ad) / abs(fd)
+    # the kernels at this path's shapes against their twins
+    kcases, kerr = [], {}
+    x = torch.randn(n, generator=torch.Generator(device="cuda")
+                    .manual_seed(5), **kw)
+    with torch.no_grad():
+        for label, Ae, free in (("fused/K", ops[0], ipde.free_mask),
+                                ("fused/M", Me, ones)):
+            kerr[label], case = fused_case(ck, label, Ae, W, free, x)
+            kcases.append(case)
+        for label, asm, pp, powers in (
+                ("k2/K", ipde.element_matrices_fn, p, (1, 3)),
+                ("k2/M", model._modal_mass()[1], mp, (1,))):
+            kerr[label], case = k2_case(ck, label, asm.prepare(pp),
+                                        pp["thickness"], powers)
+            kcases.append(case)
+    finite = bool(torch.isfinite(X).all()) and bool(torch.isfinite(grad).all())
+    say("modal", mesh="128x32", n_dofs=n, n_modes=6,
+        eigenvalues=json.dumps([f"{v:.15e}" for v in lam_h]),
+        frequencies_hz=json.dumps([round(float(v), 6)
+                                   for v in out.frequencies.detach()]),
+        rel_err_vs_jax=f"{err_jax:.3e}", rel_err_vs_eigsh=f"{err_eigsh:.3e}",
+        eigsh_s=f"{eigsh_s:.2f}",
+        res_norms=json.dumps([f"{v:.3e}" for v in res.cpu().numpy()]),
+        ortho_err=f"{ortho:.3e}", lobpcg_iterations=out.iterations,
+        vcycles_first_call=vc_first, first_call_s=f"{first_s:.3f}",
+        warm_s=f"{warm_s:.3f}", warm_eigensolve_s=f"{solve_s:.3f}",
+        warm_vcycle_host_s=f"{vc_host_s:.3f}",
+        warm_rayleigh_s=f"{rayleigh_s:.3f}", launches=json.dumps(launches),
+        peak_mem_gb=f"{peak_gb:.3f}", lam1=f"{float(lam1):.15e}",
+        grad_call_s=f"{grad_s:.3f}", fd=f"{fd:.9e}", adjoint=f"{ad:.9e}",
+        fd_rel_err=f"{fd_err:.3e}",
+        kernels_at_modal_shapes=json.dumps(kcases),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if not finite or X.shape != (n, 6) or grad.shape != (nel,):
+        fail("modal: non-finite or mis-shaped modes / gradient")
+    for k, err in kerr.items():
+        bar = K2_BAR["float64"] if k.startswith("k2") \
+            else FUSED_BAR["float64"]
+        if not err <= bar:
+            fail(f"modal {k}: rel err {err:.3e} > {bar}")
+    if not err_jax <= MODAL_BAR:
+        fail(f"modal eigenvalues {lam_h} vs the JAX package's "
+             f"{MODAL_DIGITS}: rel {err_jax:.3e} (bar {MODAL_BAR})")
+    if not err_eigsh <= MODAL_BAR:
+        fail(f"modal eigenvalues {lam_h} vs eigsh {ev}: rel "
+             f"{err_eigsh:.3e} (bar {MODAL_BAR})")
+    if not float(res.max()) <= MODAL_RES_BAR:
+        fail(f"modal residual norms {res.cpu().numpy()} > {MODAL_RES_BAR}")
+    if not ortho <= MODAL_ORTHO_BAR:
+        fail(f"modal |X^T M X - I| {ortho:.3e} > {MODAL_ORTHO_BAR}")
+    if not fd_err <= MODAL_FD_BAR:
+        fail(f"modal FD {fd:.9e} vs adjoint {ad:.9e}: rel {fd_err:.3e}")
+    return launches
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -973,7 +1299,8 @@ def main():
     fused = phase_k1_fused(ck)
     k2 = phase_k2(ck)
     by_path = {"slice": phase_slice(ck), "wing": phase_wing(ck),
-               "transient": phase_transient(ck)}
+               "transient": phase_transient(ck), "opt": phase_opt(ck),
+               "modal": phase_modal(ck)}
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in by_path["slice"]}
     if "jax" in sys.modules:

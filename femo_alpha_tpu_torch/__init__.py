@@ -11,7 +11,12 @@ plain PyTorch twins.
 Ported so far: the RM-shell statics of element-wise isotropic material
 (`models.RMShellModel(...).evaluate` and the backward of any output) on
 structured plates with strong BCs (geometric MG) and on gmsh or generated
-wings with penalty BCs (band Cholesky), with the stress outputs. See
+wings with penalty BCs (band Cholesky), with the stress outputs; the
+transient shell (`models.dynamic_rm_shell.PlateSim`); modal analysis
+(`RMShellModel.evaluate_modal` / `modal_eigenvalues`, LOBPCG or a dense
+eigh, `solvers.eigen`) and the handbook buckling margins; the SLSQP
+design-optimization loop (`opt.OptimizationProblem`), the csdl
+operation contracts (`csdl_opt`) and npz checkpoints (`io`). See
 ROADMAP.md for what remains.
 """
 

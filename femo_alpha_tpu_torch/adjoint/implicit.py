@@ -117,22 +117,37 @@ class ImplicitPDE:
         pca = self._pc.prepare(params) if self._pc is not None else ()
         return emb, pca, self._prepare_facet_ops(params)
 
-    def _newton_state(self, params, u0, aux):
-        """One Newton step from u0 (exact for these linear problems):
-        returns (u, linearization state) — the state is what the adjoint
-        reuses."""
+    def _linearize(self, u, params, aux):
+        """The operator blocks and preconditioner state at u."""
         emf_basis, pc_aux, facet_ops = aux
-        f = self.free_mask
-        u = f * u0 + (1.0 - f) * self.bc_vals
-        r = self.residual(u, params)
         ops_Ae = self._assemble_ops(u, params, emf_basis=emf_basis,
                                     facet_ops=facet_ops)
         M_state = (self._pc.setup_state(u, params, ops_Ae, pc_aux)
                    if self._pc is not None else None)
+        return ops_Ae, M_state
+
+    def _newton_state(self, params, u0, aux):
+        """One Newton step from u0 (exact for these linear problems):
+        returns (u, linearization state) — the state is what the adjoint
+        reuses."""
+        f = self.free_mask
+        u = f * u0 + (1.0 - f) * self.bc_vals
+        r = self.residual(u, params)
+        ops_Ae, M_state = self._linearize(u, params, aux)
         solver = self._solver_from(ops_Ae, M_state)
         u = u - solver.solve(r)
         self.last_info["forward"] = solver.last_info
         return u, (ops_Ae, M_state)
+
+    def make_solver(self, u, params) -> LinearSolver:
+        """The LinearSolver of the system linearized at u (the operator
+        blocks and the preconditioner the solve path would use), for
+        callers that drive their own solves: the csdl operations and the
+        modal path."""
+        with torch.no_grad():
+            p = {k: v.detach() for k, v in params.items()}
+            return self._solver_from(
+                *self._linearize(u, p, self._prepare_aux(p)))
 
     def _bwd_impl(self, params, u, ops_Ae, M_state, g, wrt):
         """-(dR/dp)^T lam for the parameters named in `wrt`."""

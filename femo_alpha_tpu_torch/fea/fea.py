@@ -97,6 +97,9 @@ class FEA:
                              element_matrices_fn=st.element_matrices_fn,
                              facet_forms=st.facet_forms)
 
+    def _get_pde(self, name) -> ImplicitPDE:
+        return self.states[name].pde
+
     def solve(self, name, params, u0=None):
         """Differentiable solve of one state."""
         return self.states[name].pde.solve(params, u0=u0)

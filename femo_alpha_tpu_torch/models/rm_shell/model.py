@@ -26,10 +26,17 @@ Every operator application goes through the fused constrained operator
 block) and every per-design re-assembly of the cell operator through the
 affine basis (K2).
 
+Modal analysis (`evaluate_modal`, `modal_eigenvalues`): the smallest
+eigenpairs of K phi = omega^2 M phi by a dense reduced eigh (n_dofs <=
+6000) or by LOBPCG over the solve path's operator and preconditioner, with
+eigenvalues differentiable in thickness, E, nu and density through the
+Rayleigh quotient at the converged modes.
+
 Not ported yet (ROADMAP.md, Queue 1), raising NotImplementedError before
 the device is looked at: composite laminates, nodal (CG1) material fields,
-custom solver_opts, other element types and dtypes; at evaluate: nodal
-forces (is_pressure=False) and the mesh-motion input node_disp. Past the
+custom solver_opts, other element types and dtypes, `record=True` (the
+XDMF recorder); at evaluate and evaluate_modal: nodal forces
+(is_pressure=False) and the mesh-motion input node_disp. Past the
 band memory guard the reference falls back to an aggregation AMG, which
 is not ported either: that raises too. The model runs on the CUDA card
 unless `device` names another; without a card and without `device` it
@@ -43,10 +50,20 @@ import os
 import numpy as np
 import torch
 
-from ...assembly.assemble import assemble_scalar_subset
+from ...assembly.affine import CachedAffineAssembler
+from ...assembly.assemble import (
+    assemble_residual,
+    assemble_scalar,
+    assemble_scalar_subset,
+    make_constrained_matvec_T,
+)
 from ...device import resolve_device, tensor_on
 from ...fea import FEA, FEAModel
+from ...fea.model import VariableGroup
 from ...solvers.band import band_precond_factory
+from ...solvers.direct import dense_from_elements
+from ...solvers.eigen import dense_generalized_eigh, lobpcg
+from ...utils.logging import log
 from .mg import ShellMGPrecond, build_shell_mg, strong_bc_dofs
 from .pde import RMShellPDE
 
@@ -85,7 +102,7 @@ class DisplacementExtractionModel:
 
 class RMShellModel:
     def __init__(self, mesh, shell_bc_func=None, element_wise_material=False,
-                 rho=100, PENALTY_BC=True, mesh_tags=None,
+                 rho=100, PENALTY_BC=True, mesh_tags=None, record=False,
                  elementwise_pressure=False, element_type="CG2CG1",
                  solver_opts=None, inplane_deg=4, shear_deg=4,
                  composite_clt=None, device=None, dtype=torch.float64):
@@ -93,6 +110,9 @@ class RMShellModel:
             raise ValueError(
                 "Please provide the shell bc location function.\n"
                 "Example: def ClampedBoundary(x): return x[:, 1] < 0.0")
+        if record:
+            raise _not_ported("record=True (io/recorder.py, the XDMF "
+                              "writer)")
         if composite_clt is not None:
             raise _not_ported("composite_clt")
         if not element_wise_material:
@@ -105,6 +125,7 @@ class RMShellModel:
             raise _not_ported(f"element_type={element_type!r}")
         self.mesh = mesh
         self.mesh_tags = mesh_tags
+        self.record = record
         self.shell_bc_func = shell_bc_func
         self.element_wise_material = element_wise_material
         self.m, self.rho = 1e-6, rho
@@ -118,6 +139,8 @@ class RMShellModel:
         self.dtype = dtype
         self.subdomain_masks = {}
         self.association_table = {}
+        self._modal_m = None           # see _modal_mass
+        self._modal_modes_cache = {}   # design point -> modes
         if mesh_tags is not None:
             self.set_up_subdomains(mesh_tags)
         self.set_up_fea()
@@ -188,8 +211,6 @@ class RMShellModel:
 
         # the MID-plane shell stiffness is exactly h*M1 + h^3*M3 per cell:
         # each linearization re-assembles with one K2 combine
-        from ...assembly.affine import CachedAffineAssembler
-
         emf = CachedAffineAssembler(residual_form)
         fea.add_state("disp_solid", residual_form,
                       arguments=["thickness", "F_solid", "E", "nu", "uhat"],
@@ -282,3 +303,189 @@ class RMShellModel:
                      lambda: AggregatedStressModel(self.m, self.rho).evaluate(
                          out.pnorm_stress))
         return out
+
+    # ---------------------------------------------------------------- modal
+    def evaluate_modal(self, thickness, E, nu, density, n_modes=6,
+                       node_disp=None, tol=1e-8, maxiter=200, seed=0,
+                       solver="auto"):
+        """Natural frequencies and mode shapes: K phi = omega^2 M phi with
+        the shell stiffness (drilling and the penalty or strong BCs
+        included) and the consistent shell mass (inertia_form with the
+        J(uhat) pullback).
+
+        solver: "auto" (dense below ~6k dofs or on the dense solve path,
+        LOBPCG above), "dense" or "lobpcg". The dense path reduces the
+        assembled K and M to the free dofs and runs
+        dense_generalized_eigh. LOBPCG applies K through the solve path's
+        fused operator (with its facet block on penalty meshes), M through
+        the fused operator on the inertia form's element matrices (affine
+        in thickness with one power: one K2 combine per design), and is
+        preconditioned by the solve path's MG V-cycle, band Cholesky or
+        dense solve; its start block is
+        numpy.random.default_rng(seed).standard_normal((n, k)).
+
+        Inputs in the CALLER's cell order. Returns a VariableGroup:
+        `eigenvalues` (k,) and `frequencies` (Hz), the Rayleigh quotients at
+        the converged modes, differentiable in the four inputs (eigenvector
+        stationarity makes that the exact eigenvalue gradient); `modes`
+        (n_dofs, k; M-orthonormal), `modes_extracted` (k, n_nodes, 3),
+        `res_norms`, `iterations`, and `eig_fn(thickness, E, nu, density)
+        -> (k,)`, the Rayleigh-quotient map at these modes."""
+        if node_disp is not None:
+            raise _not_ported("node_disp (mesh-motion shape input)")
+        k = int(n_modes)
+        X, res, iters = self._modal_modes(thickness, E, nu, density, k, tol,
+                                          maxiter, seed, solver)
+        X = X.detach()
+
+        def eig_fn(th, E_, nu_, rho_):
+            return self._modal_rayleigh(X, th, E_, nu_, rho_)
+
+        lam = eig_fn(thickness, E, nu, density)
+        freqs = torch.sqrt(torch.clamp(lam, min=0.0)) / (2.0 * np.pi)
+        ext = DisplacementExtractionModel(self.shell_pde)
+        modes_x = torch.stack([ext.evaluate(X[:, i]) for i in range(k)])
+        return VariableGroup(eigenvalues=lam, frequencies=freqs, modes=X,
+                             modes_extracted=modes_x, res_norms=res,
+                             iterations=iters, eig_fn=eig_fn)
+
+    def _modal_fe_params(self):
+        """fe_params(th, E, nu, rho) -> (residual params, mass params) in
+        FE order, with zero load (the residual at u is then exactly
+        K(p) u); differentiable in the four inputs."""
+        pde = self.shell_pde
+        igi = self.mesh.input_global_indices
+        oci = self.mesh.original_cell_index
+        mat_idx = oci if oci is not None else igi
+        zeros = dict(dtype=self.dtype, device=self.device)
+
+        def fe_params(th, E_, nu_, rho_):
+            uhat = torch.zeros(pde.VU.n_dofs, **zeros)
+            p = {"thickness": self._reorder(th, mat_idx),
+                 "E": self._reorder(E_, mat_idx),
+                 "nu": self._reorder(nu_, mat_idx),
+                 "F_solid": torch.zeros(pde.VF.n_dofs, **zeros),
+                 "uhat": uhat}
+            mp = {"thickness": p["thickness"],
+                  "density": self._reorder(rho_, mat_idx), "uhat": uhat}
+            return p, mp
+
+        return fe_params
+
+    def _modal_mass(self):
+        """(inertia form with the J(uhat) pullback, its affine assembler in
+        thickness with one power), made at first use."""
+        if self._modal_m is None:
+            mform = self.shell_pde.inertia_form(with_uhat=True)
+            self._modal_m = (mform, CachedAffineAssembler(
+                mform, powers=(1,), ignore_keys=()))
+        return self._modal_m
+
+    def _modal_modes(self, thickness, E, nu, density, k, tol, maxiter, seed,
+                     solver):
+        """The eigensolve at fixed inputs: (modes X (n, k), res_norms,
+        iterations), no autograd graph."""
+        pde = self.shell_pde
+        ipde = self.fea.states["disp_solid"].pde
+        W = pde.W
+        n = W.n_dofs
+        with torch.no_grad():
+            p, mp = self._modal_fe_params()(thickness, E, nu, density)
+            p = {key: v.detach() for key, v in p.items()}
+            mp = {key: v.detach() for key, v in mp.items()}
+            fm = ipde.free_mask
+            free_idx = torch.nonzero(fm > 0.0)[:, 0]
+            if k > free_idx.numel():
+                raise ValueError(f"n_modes={k} exceeds {free_idx.numel()} "
+                                 "free dofs")
+            _, m_asm = self._modal_mass()
+            Me = m_asm(None, mp)  # lane-major (nd, nd, nc): one K2, K = 1
+            u0 = torch.zeros(n, dtype=self.dtype, device=self.device)
+            log(f"Modal analysis: {k} modes, {n} dofs ...")
+            use_dense = solver == "dense" or (
+                solver == "auto" and (
+                    n <= 6000 or ipde.solver_opts.get("method") == "dense"))
+            if use_dense:
+                ops = ipde._assemble_ops(u0, p)
+                Kd = None
+                for Ae, spec in zip(ops, ipde._op_specs):
+                    Kb = dense_from_elements(Ae.permute(2, 0, 1),
+                                             spec.dofmap, n)
+                    Kd = Kb if Kd is None else Kd + Kb
+                Md = dense_from_elements(Me.permute(2, 0, 1), W.dofmap, n)
+                ix = free_idx
+                _, Phif = dense_generalized_eigh(Kd[ix][:, ix],
+                                                 Md[ix][:, ix], k)
+                X = torch.zeros((n, k), dtype=self.dtype, device=self.device)
+                X[ix] = Phif
+                return X, torch.zeros(k, dtype=self.dtype,
+                                      device=self.device), 0
+            ls = ipde.make_solver(u0, p)
+            ones = torch.ones(n, dtype=self.dtype, device=self.device)
+            Mmv = make_constrained_matvec_T(Me, W, ones)
+
+            def Kop(v):
+                return fm * ls.matvec(v)
+
+            def Mop(v):
+                return fm * Mmv(fm * v)
+
+            # the preconditioner: the solve path's MG V-cycle or band
+            # apply; on the dense solve path its exact Cholesky solve
+            T = ls.M if ls.M is not None else ls.solve
+
+            def Top(v):
+                return fm * T(v)
+
+            rng = np.random.default_rng(seed)
+            X0 = torch.as_tensor(rng.standard_normal((n, k)),
+                                 dtype=self.dtype, device=self.device)
+            _, X, res, iters = lobpcg(Kop, Mop, X0, T=Top, tol=tol,
+                                      maxiter=maxiter, free_mask=fm)
+            if bool(torch.any(res > 10 * tol)):
+                log(f"modal: LOBPCG residuals {res.cpu().numpy()} after "
+                    f"{iters} iterations (tol {tol})")
+            return X, res, iters
+
+    def _modal_rayleigh(self, X, thickness, E, nu, density):
+        """Rayleigh quotients lam_i = phi_i^T K(p) phi_i / phi_i^T M(p)
+        phi_i at FIXED modes X, differentiable in the four inputs: the
+        numerator by one residual assembly per mode (zero load, facet
+        forms included), the denominator as twice the inertia energy."""
+        ipde = self.fea.states["disp_solid"].pde
+        mform, _ = self._modal_mass()
+        p, mp = self._modal_fe_params()(thickness, E, nu, density)
+        lams = []
+        for i in range(X.shape[1]):
+            phi = X[:, i]
+            r = assemble_residual(ipde.form, phi, p)
+            for ff in ipde.facet_forms:
+                r = r + ff.assemble_residual(phi, p)
+            lams.append(torch.dot(phi, r)
+                        / (2.0 * assemble_scalar(mform, phi, mp)))
+        return torch.stack(lams)
+
+    def modal_eigenvalues(self, thickness, E, nu, density, n_modes=6,
+                          node_disp=None, **opts):
+        """The smallest eigenvalues (omega^2, ascending), differentiable in
+        the four inputs: an eigensolve without autograd (evaluate_modal's,
+        `opts` passed on) gives the modes, and the returned eigenvalues are
+        the Rayleigh quotients at them, so `.backward()` gives the exact
+        eigenvalue gradient. The modes are memoized on the design point
+        (the last 8): SLSQP asks for the same x several times."""
+        if node_disp is not None:
+            raise _not_ported("node_disp (mesh-motion shape input)")
+        k = int(n_modes)
+        vals = [self._tensor(v) for v in (thickness, E, nu, density)]
+        cache = self._modal_modes_cache
+        key = ((k, tuple(sorted(opts.items())))
+               + tuple(v.detach().cpu().numpy().tobytes() for v in vals))
+        X = cache.get(key)
+        if X is None:
+            o = dict(tol=1e-8, maxiter=200, seed=0, solver="auto")
+            o.update(opts)
+            X = self._modal_modes(*[v.detach() for v in vals], k, **o)[0]
+            if len(cache) >= 8:
+                cache.pop(next(iter(cache)))
+            cache[key] = X
+        return self._modal_rayleigh(X, *vals)

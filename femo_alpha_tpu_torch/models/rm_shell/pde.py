@@ -231,11 +231,11 @@ class RMShellPDE:
         """Shell inertia as an energy, 0.5 rho h (|u|^2 + h_m^2 |theta|^2)
         with h_m the cell diameter: its Hessian is the mass operator. The
         density is the DG0/CG1 field "density" or, with
-        rho_is_param=False, the scalar "rho" (passed to every cell). The
-        J(uhat) pullback of the modal path (with_uhat=True) is not
-        ported."""
-        if with_uhat:
-            raise _not_ported("inertia_form(with_uhat=True) (the modal path)")
+        rho_is_param=False, the scalar "rho" (passed to every cell).
+        with_uhat: include the J(uhat) deformed-configuration pullback (the
+        modal path; the transient shell integrates on the reference
+        configuration and leaves it out)."""
+        nv = self.nv
 
         def kern(u_cell, x_cell, p):
             R = self._rules["inplane"]
@@ -249,6 +249,10 @@ class RMShellPDE:
             hm = cell_diameter(x_cell)
             dens = rhoq * hq * (torch.sum(u_q ** 2, dim=1)
                                 + hm ** 2 * torch.sum(th_q ** 2, dim=1))
+            if with_uhat:
+                dphi_g = phys_grad_table(R["geom_dphi"], geo["Pi"])
+                _, _, detF = deformation(p["uhat"].reshape(nv, 3), dphi_g)
+                dens = dens * detF
             return torch.sum(0.5 * dens * R["w"] * geo["dA"])
 
         specs = {"thickness": self.VT}
@@ -256,6 +260,8 @@ class RMShellPDE:
             specs["density"] = self.VT
         else:
             specs["rho"] = None
+        if with_uhat:
+            specs["uhat"] = self.VU
         return FemForm(self.W, kern, kind="energy", param_specs=specs)
 
     def self_weight_load(self, g_z):

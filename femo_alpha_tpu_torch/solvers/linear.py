@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..assembly.assemble import make_constrained_matvec_T
+from .direct import apply_bc_dense
 from .krylov import cg_solve
 
 
@@ -65,16 +66,16 @@ class LinearSolver:
         self.last_info = None
         self._chol = None
         if method == "dense":
-            f = self.free_mask
-            A = dense_from_blocks(ops, n_dofs)
-            A = A * f[:, None] * f[None, :] + torch.diag(1.0 - f)
+            A = apply_bc_dense(dense_from_blocks(ops, n_dofs),
+                               self.free_mask)
             L, info = torch.linalg.cholesky_ex(A)
             if int(info) != 0:
                 raise RuntimeError(
                     f"LinearSolver: the dense constrained matrix is not "
                     f"positive definite (Cholesky info {int(info)})")
             self._chol = L
-            return
+        # the constrained operator, on both paths (the modal path applies
+        # it on the dense one too)
         mvs = [make_constrained_matvec_T(Ae, sp, self.free_mask)
                for Ae, sp in ops]
         if len(mvs) == 1:

@@ -7,7 +7,9 @@ the band Cholesky factor on the card against the CPU path, and a penalty
 wing model on the card against the same model on the CPU; the transient
 shell (PlateSim, MG) on the card against the CPU, its checkpointed
 segments recomputed bit for bit and its V-cycle setup repeated bit for
-bit. They skip without a card. The
+bit; modal analysis (LOBPCG + MG) on the card against the CPU, and
+OptimizationProblem and the csdl operations on the card by default. They
+skip without a card. The
 file imports no jax, so on a machine without the JAX package it runs on
 its own:
 
@@ -377,3 +379,71 @@ def test_mg_setup_is_bitwise_repeatable(cuda):
     v = torch.randn(sim.fe_dofs, generator=cuda, device="cuda",
                     dtype=torch.float64)
     assert torch.equal(sim.mg.apply(s1, v), sim.mg.apply(s2, v))
+
+
+def test_lobpcg_on_card_matches_cpu(cuda):
+    """evaluate_modal by LOBPCG preconditioned by the MG V-cycle (64x16,
+    16,086 dofs) on the card against the same run on the CPU: eigenvalues
+    to 1e-10 (cuSOLVER's and LAPACK's Gram eigh may prune differently, so
+    iteration counts are not compared); the card ran the fused operator
+    and K2 (K = 2 for K, K = 1 for M), never the standalone K1; the
+    eigenvalue gradient of modal_eigenvalues to 1e-7."""
+    mesh = _rect(64, 16)
+    nel = mesh.n_cells
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = RMShellModel(mesh, shell_bc_func=_clamped,
+                             element_wise_material=True, PENALTY_BC=False,
+                             device=dev)
+        kw = dict(dtype=torch.float64, device=dev)
+        args = (torch.full((nel,), 0.2, **kw),
+                torch.full((nel,), 4.32e8, **kw), torch.zeros(nel, **kw),
+                torch.full((nel,), 100.0, **kw))
+        ck.reset_launch_counts()
+        out = model.evaluate_modal(*args, n_modes=3, solver="lobpcg",
+                                   tol=1e-8, maxiter=200, seed=0)
+        launched = ck.launch_counts()
+        th = args[0].clone().requires_grad_(True)
+        lam1 = model.modal_eigenvalues(th, *args[1:], n_modes=1)[0]
+        lam1.backward()
+        res[dev] = (out.eigenvalues.detach().cpu(), out.res_norms.cpu(),
+                    launched, th.grad.cpu())
+    assert res["cuda"][2]["constrained_matvec_T"] > 0
+    assert res["cuda"][2]["affine_combine"] > 0
+    assert res["cuda"][2]["cell_matvec_T"] == 0
+    assert _rel(res["cuda"][0], res["cpu"][0]) <= 1e-10
+    assert float(res["cuda"][1].max()) <= 1e-5
+    assert _rel(res["cuda"][3], res["cpu"][3]) <= 1e-7
+
+
+def test_optimization_problem_defaults_to_the_card(cuda):
+    """OptimizationProblem without device= hands the model card tensors;
+    the csdl operations run on their FEA's device (the card by default)."""
+    from femo_alpha_tpu_torch.csdl_opt import StateOperation
+    from femo_alpha_tpu_torch.opt import OptimizationProblem
+
+    seen = []
+
+    def ev(dv):
+        seen.append(dv["x"].device.type)
+        return {"obj": torch.sum((dv["x"] - 2.0) ** 2)}
+
+    prob = OptimizationProblem(ev)
+    assert prob.device.type == "cuda"
+    prob.add_design_variable("x", np.zeros(3))
+    prob.set_objective("obj")
+    dvs, res = prob.solve(maxiter=50, report=False)
+    assert res.success and dvs["x"].is_cuda and set(seen) == {"cuda"}
+    torch.testing.assert_close(dvs["x"].cpu(), torch.full(
+        (3,), 2.0, dtype=torch.float64), rtol=0, atol=1e-8)
+    model = RMShellModel(_rect(8, 4), shell_bc_func=_clamped,
+                         element_wise_material=True, PENALTY_BC=False)
+    mesh = model.mesh
+    op = StateOperation(model.fea, "disp_solid")
+    f = np.zeros(3 * mesh.n_nodes)
+    f[2::3] = 1.0
+    u = op.evaluate({"thickness": np.full(mesh.n_cells, 0.1), "F_solid": f,
+                     "E": np.full(mesh.n_cells, 1e9),
+                     "nu": np.full(mesh.n_cells, 0.3),
+                     "uhat": np.zeros(3 * mesh.n_nodes)})
+    assert u.is_cuda and op.apply_inverse_jacobian(u, "rev").is_cuda

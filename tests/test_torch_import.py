@@ -27,12 +27,16 @@ def test_every_module_imports_without_jax():
     mods = _all_modules()
     assert "femo_alpha_tpu_torch.assembly.cuda_kernels" in mods
     assert "femo_alpha_tpu_torch.models.rm_shell.model" in mods
-    # the default aircraft configuration's and the transient shell's
-    # modules, among them
+    # the default aircraft configuration's, the transient shell's and the
+    # optimization and modal path's modules, among them
     for m in ("io.gmsh", "mesh.wing", "solvers.band", "assembly.facets",
               "models.dynamic_rm_shell", "models.dynamic_rm_shell.plate_sim",
               "models.dynamic_rm_shell.mg", "spaces.pointeval",
-              "adjoint.check"):
+              "adjoint.check", "opt", "opt.problem", "csdl_opt",
+              "csdl_opt.state_operation", "csdl_opt.output_operation",
+              "utils", "utils.logging", "utils.timing", "io.checkpoint",
+              "solvers.eigen", "solvers.direct",
+              "models.rm_shell.buckling"):
         assert "femo_alpha_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"

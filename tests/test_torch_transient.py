@@ -147,8 +147,9 @@ def port(reference):
 
 
 def test_forms_match_reference(reference, port):
-    """Inertia (scalar and field density), the self weight and the load:
-    element matrices and vectors to 1e-12."""
+    """Inertia (scalar and field density, and with the J(uhat) pullback at
+    uhat = 0), the self weight and the load: element matrices and vectors
+    to 1e-12."""
     sim = port["sim"]
     pde, th = sim.pde, _t(reference["th"])
     zero = torch.zeros(sim.fe_dofs, dtype=torch.float64)
@@ -164,8 +165,15 @@ def test_forms_match_reference(reference, port):
     assert _rel(sim.assemble_load(reference["fh"][3]),
                 reference["load"]) <= 1e-12
     assert _rel(sim.self_weight_vector(th), reference["sw"]) <= 1e-12
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pde.inertia_form(with_uhat=True)
+    # the J(uhat) pullback (the modal path) is the identity at uhat = 0;
+    # tests/test_torch_modal.py holds it against the reference at uhat != 0
+    Mu = element_matrices(pde.inertia_form(with_uhat=True), zero,
+                          {"thickness": th,
+                           "density": torch.full((sim.num_var,), 7.0,
+                                                 dtype=torch.float64),
+                           "uhat": torch.zeros(pde.VU.n_dofs,
+                                               dtype=torch.float64)})
+    assert _rel(Mu, reference["Mp"]) <= 1e-12
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pde.regularization_kernel("H1")
 
