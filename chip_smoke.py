@@ -8,8 +8,10 @@ builds the port's hand-written kernels from the sources in this checkout
 (one nvcc per source, all at once), checks each against its plain PyTorch
 twin on the card — K1 cell_matvec_T, the fused constrained operator
 constrained_matvec_T at the slice's two smoothed-level shapes (also bit
-for bit from run to run), K2 affine_combine — and times each beside its
-bound and one PyTorch library call that computes the same function. Then
+for bit from run to run), K2 affine_combine at K = 1..4 on even, odd and
+misaligned inputs (also bit for bit) — and times each beside its bound
+and one PyTorch library call that computes the same function (K2 also
+with a cold L2, as each design finds it). Then
 it drives the RM-shell slice — RMShellModel.evaluate +
 compliance.backward() on the 128x32 strong-BC cantilever plate (62,886
 dofs), f64 — requires that the solve went through the fused operator and
@@ -24,7 +26,8 @@ the fused operator (cell and facet blocks) and K2, checks both kernels at
 the wing's shapes against their twins, and checks the result against the
 JAX package's digits, the solve-quality gate, a host SuperLU solve of the
 same assembled penalty system, a central difference of the gradient, and
-two band factors of one system bit for bit. Then it drives the
+two band factors of one system bit for bit, and requires that a fresh
+model's evaluate + backward repeats the first one's bits. Then it drives the
 transient shell — PlateSim on the repo's transient workload
 (tools/transient_bench.py: the 40x20 plate, 12,546 dofs, 50 implicit-
 midpoint steps of a 1-cos gust), simulate_outputs + backward through
@@ -37,7 +40,8 @@ examples/advanced_examples/pav_shell_opt/ex_pav_wing_thickness_opt.py on
 the same wing — OptimizationProblem (scipy SLSQP, autograd gradients),
 min mass s.t. aggregated stress, OPT_MAXITER iterations — checked
 against the JAX package's objective history, final mass and aggregated
-stress and nit / nfev / njev. Last, modal analysis of the 128x32 plate
+stress and nit / nfev / njev (the history also printed to 17 digits, to
+compare runs). Last, modal analysis of the 128x32 plate
 — evaluate_modal, 6 modes by LOBPCG preconditioned by the MG V-cycle —
 checked against the JAX package's eigenvalues, a host eigsh of the
 same pencil, the residual norms, M-orthonormality and a central
@@ -120,6 +124,11 @@ MODAL_FD_BAR = 1e-5
 # tensor cores, which none of these kernels use
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {"float32": 67e12, "float64": 34e12}
+# a read of this many bytes (over twice the H100's 50 MB L2) leaves no
+# line of a kernel's inputs or outputs in the L2
+L2_FLUSH_BYTES = 128 << 20
+# K2's cases: the powers of each term count K
+K2_POWERS = {1: (1,), 2: (1, 3), 3: (1, 2, 3), 4: (0, 1, 2, 3)}
 
 
 def say(phase, **kv):
@@ -172,6 +181,37 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def cuda_ms_cold(fn, reps):
+    """Mean device milliseconds of one call of fn() that finds the L2 cold,
+    as a per-design call does on the path: each call is timed with its own
+    event pair, after a read of L2_FLUSH_BYTES (after one warm-up call).
+    The buffer is written once beforehand and only read between calls, so
+    the L2 holds clean lines and no timed call pays for writing back
+    another's. As in cuda_ms, all of it is queued behind a sleep kernel,
+    so that no event pair holds host time."""
+    import torch
+
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                       device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    flush.sum()
+    fn()
+    launch_s = time.perf_counter() - t
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(2.0 * reps * launch_s, 1.0) * 2e9))
+    for t0, t1 in events:
+        flush.sum()
+        t0.record()
+        fn()
+        t1.record()
+    torch.cuda.synchronize()
+    return statistics.mean(t0.elapsed_time(t1) for t0, t1 in events)
 
 
 def phase_device():
@@ -248,56 +288,63 @@ def phase_k1(ck):
 
 
 def phase_k2(ck):
+    """K2 against its twin at K = 1..4 in f64 and f32, at the paths' cell
+    counts (4,096, 2,388, 800), an odd one (801) and on a basis view one
+    element off 16-byte alignment (the scalar instance); two calls give
+    the same bits; the f64 backward against the twin's autograd. Timed
+    warm and cold beside theta*B[0] (K = 1) or einsum and the bound."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    powers = (1, 3)
+    nd = 39
     cases, main = [], None
     for dtype in (torch.float64, torch.float32):
-        for nc in (4096, 1024, 256):
-            nd = 39
-            B = torch.randn((2, nd, nd, nc), generator=g, device="cuda",
-                            dtype=dtype) * 1e3
-            th = 0.1 + 0.2 * torch.rand((nc,), generator=g, device="cuda",
-                                        dtype=dtype)
-            out = ck.affine_combine(B, th, powers)
-            ref = ck.affine_combine_plain(B, th, powers)
-            torch.cuda.synchronize()
-            err = rel_norm(out, ref)
-            name = str(dtype).split(".")[-1]
-            if not err <= K2_BAR[name]:
-                fail(f"K2 {name} nc={nc}: rel err {err:.3e} > "
-                     f"{K2_BAR[name]:.0e}")
-            ms = cuda_ms(lambda: ck.affine_combine(B, th, powers), 100)
-            pms = cuda_ms(lambda: ck.affine_combine_plain(B, th, powers),
-                          100)
-            case = f"{name}/{nc}:err={err:.2e},ms={ms:.5f},plain_ms={pms:.5f}"
-            if dtype == torch.float64:
-                G = torch.randn((nd, nd, nc), generator=g, device="cuda",
-                                dtype=dtype)
-                t1 = th.clone().requires_grad_(True)
-                (gk,) = torch.autograd.grad(
-                    ck.affine_combine(B, t1, powers), t1, G)
-                t2 = th.clone().requires_grad_(True)
-                (gp,) = torch.autograd.grad(
-                    ck.affine_combine_plain(B, t2, powers), t2, G)
-                gerr = rel_norm(gk, gp)
-                if not gerr <= K2_GRAD_BAR:
-                    fail(f"K2 backward nc={nc}: rel err {gerr:.3e} > "
-                         f"{K2_GRAD_BAR:.0e}")
-                case += f",grad_err={gerr:.2e}"
-                if nc == 4096:
-                    coef = torch.stack([th ** p for p in powers])
-                    lms = cuda_ms(lambda: torch.einsum("kc,kijc->ijc", coef,
-                                                       B), 100)
-                    nbytes = B.nbytes + th.nbytes + out.nbytes
-                    flops = (2 * len(powers) - 1) * nd * nd * nc
+        name = str(dtype).split(".")[-1]
+        for K, powers in K2_POWERS.items():
+            for nc, offset in ((4096, 0), (2388, 0), (800, 0), (801, 0),
+                               (800, 1)):
+                n = K * nd * nd * nc
+                flat = torch.randn((n + offset,), generator=g, device="cuda",
+                                   dtype=dtype) * 1e3
+                B = flat[offset:].view(K, nd, nd, nc)
+                th = 0.1 + 0.2 * torch.rand((nc,), generator=g,
+                                            device="cuda", dtype=dtype)
+                out = ck.affine_combine(B, th, powers)
+                same = torch.equal(out, ck.affine_combine(B, th, powers))
+                ref = ck.affine_combine_plain(B, th, powers)
+                torch.cuda.synchronize()
+                err = rel_norm(out, ref)
+                label = f"{name}/K={K}/nc={nc}" + ("/offset=1" if offset
+                                                   else "")
+                if not err <= K2_BAR[name]:
+                    fail(f"K2 {label}: rel err {err:.3e} > "
+                         f"{K2_BAR[name]:.0e}")
+                if not same:
+                    fail(f"K2 {label}: two calls on the same inputs differ")
+                t = _k2_times(ck, B, th, powers)
+                case = (f"{label}:err={err:.2e},same=True,"
+                        + _k2_fmt(t))
+                if dtype == torch.float64 and nc in (4096, 801):
+                    G = torch.randn((nd, nd, nc), generator=g,
+                                    device="cuda", dtype=dtype)
+                    t1 = th.clone().requires_grad_(True)
+                    (gk,) = torch.autograd.grad(
+                        ck.affine_combine(B, t1, powers), t1, G)
+                    t2 = th.clone().requires_grad_(True)
+                    (gp,) = torch.autograd.grad(
+                        ck.affine_combine_plain(B, t2, powers), t2, G)
+                    gerr = rel_norm(gk, gp)
+                    if not gerr <= K2_GRAD_BAR:
+                        fail(f"K2 backward {label}: rel err {gerr:.3e} > "
+                             f"{K2_GRAD_BAR:.0e}")
+                    case += f",grad_err={gerr:.2e}"
+                if dtype == torch.float64 and K == 2 and nc == 4096:
                     main = dict(max_abs_err=float((out - ref).abs().max()),
-                                ms=ms, plain_ms=pms, library_ms=lms,
-                                **bound(nbytes, flops, name))
-                    case += f",library_ms={lms:.5f},bytes={nbytes}"
-            cases.append(case)
+                                **t)
+                cases.append(case)
+                del flat, B
     say("k2_affine_combine", bar="f64<=1e-15,f32<=1e-6,grad<=1e-12",
+        cold="each call after a 128 MiB read, its own event pair",
         cases=json.dumps(cases))
     return main
 
@@ -353,16 +400,13 @@ def fused_case(ck, label, Ae, spec, free, x):
                  f"library_ms={cuda_ms(lambda: csr @ x, 100):.5f}")
 
 
-def k2_case(ck, label, B, theta, powers):
-    """K2 at one path's shape: error against the twin, time, the twin's,
-    the bound and the one PyTorch call of the same function (theta * B[0]
-    for K = 1, einsum for K = 2). Returns (error, case string)."""
+def _k2_times(ck, B, theta, powers):
+    """K2's times at one shape: warm (ms) and cold-L2 (ms_cold), the
+    twin's, the bound and its share of the warm and cold times, and the one
+    PyTorch call of the same function (theta * B[0] for K = 1, einsum
+    otherwise), warm and cold."""
     import torch
 
-    Ak = ck.affine_combine(B, theta, powers)
-    Ap = ck.affine_combine_plain(B, theta, powers)
-    torch.cuda.synchronize()
-    err = rel_norm(Ak, Ap)
     K, nd, _, nc = B.shape
     coef = torch.stack([theta ** p for p in powers])  # outside the timing
     if K == 1:
@@ -371,13 +415,39 @@ def k2_case(ck, label, B, theta, powers):
     else:
         def lib():
             return torch.einsum("kc,kijc->ijc", coef, B)
-    b = bound(B.nbytes + theta.nbytes + Ak.nbytes,
+
+    def kernel():
+        return ck.affine_combine(B, theta, powers)
+
+    b = bound((K + 1) * B[0].nbytes + theta.nbytes,
               (2 * K - 1) * nd * nd * nc, str(B.dtype).split(".")[-1])
-    ms = cuda_ms(lambda: ck.affine_combine(B, theta, powers), 50)
-    pms = cuda_ms(lambda: ck.affine_combine_plain(B, theta, powers), 50)
-    return err, (f"{label}/K={K}/nc={nc}:err={err:.2e},ms={ms:.5f},"
-                 f"plain_ms={pms:.5f},bound_ms={b['bound_ms']:.5f},"
-                 f"library_ms={cuda_ms(lib, 50):.5f}")
+    t = dict(ms=cuda_ms(kernel, 50), ms_cold=cuda_ms_cold(kernel, 30),
+             plain_ms=cuda_ms(lambda: ck.affine_combine_plain(
+                 B, theta, powers), 50),
+             library_ms=cuda_ms(lib, 50),
+             library_ms_cold=cuda_ms_cold(lib, 30), **b)
+    t["frac_of_bound"] = t["bound_ms"] / t["ms"]
+    t["frac_of_bound_cold"] = t["bound_ms"] / t["ms_cold"]
+    return t
+
+
+def _k2_fmt(t):
+    return ",".join(f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
+                    for k, v in t.items() if k != "bound_by")
+
+
+def k2_case(ck, label, B, theta, powers):
+    """K2 at one path's shape: error against the twin and _k2_times.
+    Returns (error, case string)."""
+    import torch
+
+    Ak = ck.affine_combine(B, theta, powers)
+    Ap = ck.affine_combine_plain(B, theta, powers)
+    torch.cuda.synchronize()
+    err = rel_norm(Ak, Ap)
+    K, _, _, nc = B.shape
+    return err, (f"{label}/K={K}/nc={nc}:err={err:.2e},"
+                 + _k2_fmt(_k2_times(ck, B, theta, powers)))
 
 
 def phase_k1_fused(ck):
@@ -654,12 +724,16 @@ def phase_wing(ck):
     h0 = 0.005
     mesh = readFEAMesh(WING_MESH)
     nel = mesh.n_cells
+
+    def make_model():
+        # no device=: the model takes the card by default
+        return RMShellModel(mesh, shell_bc_func=lambda x: x[:, 1] < 1e-9,
+                            element_wise_material=True,
+                            mesh_tags={t: np.asarray(c)
+                                       for t, c in mesh.cell_tags.items()})
+
     t0 = time.perf_counter()
-    # no device=: the model takes the card by default
-    model = RMShellModel(mesh, shell_bc_func=lambda x: x[:, 1] < 1e-9,
-                         element_wise_material=True,
-                         mesh_tags={t: np.asarray(c)
-                                    for t, c in mesh.cell_tags.items()})
+    model = make_model()
     setup_s = time.perf_counter() - t0
     if model.device.type != "cuda":
         fail(f"RMShellModel without device= runs on {model.device}")
@@ -668,14 +742,21 @@ def phase_wing(ck):
     n = pde.n_dofs
     P, E, nu, rho = _wing_inputs(mesh, torch)
 
-    def run(th_val, backward=True):
+    def run(th_val, backward=True, on=None):
         th = th_val.clone().requires_grad_(backward)
-        out = model.evaluate(P, th, E, nu, rho)
+        out = (model if on is None else on).evaluate(P, th, E, nu, rho)
         agg = out.aggregated_stress
         if backward:
             agg.backward()
         torch.cuda.synchronize()
         return out, th.grad
+
+    def bits(out, grad):
+        """u, every output and the thickness gradient of one call."""
+        names = ["disp_solid", "aggregated_stress", "disp_extracted",
+                 *model.fea.outputs, *model.fea.field_outputs]
+        return {"thickness_grad": grad.clone(),
+                **{k: getattr(out, k).detach().clone() for k in names}}
 
     # how often a call factors and applies the band (plain torch, no
     # launch counter of its own)
@@ -694,7 +775,7 @@ def phase_wing(ck):
     torch.cuda.reset_peak_memory_stats()
     ck.reset_launch_counts()
     t0 = time.perf_counter()
-    run(th0)
+    first_call = run(th0)
     first_s = time.perf_counter() - t0
     first = ck.launch_counts()
     first_band = dict(band_calls)
@@ -705,6 +786,7 @@ def phase_wing(ck):
         warm.append(time.perf_counter() - t0)
     launches = ck.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    first_bits = bits(*first_call)
     per_warm = {k: (launches[k] - first[k]) / 3 for k in launches}
     band_per_warm = {k: (band_calls[k] - first_band[k]) / 3
                      for k in band_calls}
@@ -788,6 +870,11 @@ def phase_wing(ck):
     ud = ud + lu.solve(b - B @ ud)
     direct_s = time.perf_counter() - t0
     nodal = float(np.linalg.norm(uh - ud) / np.linalg.norm(ud))
+    # a fresh model's first call at the same design repeats the first
+    # call's bits (every sum on the path runs in a fixed order)
+    again = bits(*run(th0, on=make_model()))
+    differ = [k for k in first_bits
+              if not torch.equal(first_bits[k], again[k])]
     finite = (bool(torch.isfinite(u).all()) and bool(torch.isfinite(grad).all())
               and bool(torch.isfinite(stress).all()))
     say("wing", mesh=os.path.basename(WING_MESH), cells=nel, n_dofs=n,
@@ -800,6 +887,8 @@ def phase_wing(ck):
         band_apply_device_ops=apply_ops,
         band_assemble_factor_device_ops=factor_ops,
         factors_bitwise_equal=same,
+        fresh_model_bitwise_equal=not differ,
+        bitwise_compared=json.dumps(sorted(first_bits)),
         **{k: f"{v:.9e}" for k, v in got.items()},
         tag_aggregated=json.dumps({str(k): round(v, 1)
                                    for k, v in tags.items()}),
@@ -831,6 +920,9 @@ def phase_wing(ck):
         fail(f"wing FD {fd:.9e} vs adjoint {ad:.9e}: rel {fd_err:.3e}")
     if not same:
         fail("wing: two band factors of the same system differ")
+    if differ:
+        fail(f"wing: two fresh models' evaluate + aggregated_stress "
+             f"backward differ in {differ}")
     return launches
 
 
@@ -1077,6 +1169,8 @@ def phase_opt(ck):
             enumerate(zip(hist, OPT_DIGITS["history"]))}
     errs.update({k: abs(got[k] / OPT_DIGITS[k] - 1.0) for k in got})
     th = dvs["thickness"]
+    say("opt_history", digits=17,
+        history=json.dumps([f"{v:.16e}" for v in hist]))
     say("opt", mesh=os.path.basename(WING_MESH), cells=nel,
         n_dofs=model.shell_pde.W.n_dofs, maxiter=OPT_MAXITER,
         scipy=scipy.__version__, message=repr(res.message),

@@ -23,6 +23,7 @@ from torch.func import grad, jacfwd, vmap
 
 from ..elements import reference_element
 from ..elements.quadrature import quadrature_rule
+from ..spaces.fixed_order import fixed_order_scatter, sum_plan
 from ..spaces.space import _LaneTables
 
 # local edge parametrizations xi(t), t in [0,1], and d(xi)/dt
@@ -139,25 +140,29 @@ class FacetForm:
                 pdm = torch.as_tensor(sp.dofmap, dtype=torch.int64,
                                       device=dev)[idx]
                 pc[name], dims[name] = v[pdm], 0
-        return vmap(fn, in_dims=(0, 0, dims))(uc, xc, pc), dm
+        return vmap(fn, in_dims=(0, 0, dims))(uc, xc, pc)
 
     def assemble_residual(self, u, params):
-        r = u.new_zeros(self.space.n_dofs)
-        for g in self.groups:
-            rc, dm = self._batch(g["kernel"], u, params, g["cells"])
-            r = r.index_add(0, dm.reshape(-1), rc.reshape(-1))
-        return r
+        """The facet residual (n_dofs,): each dof sums its entries of all
+        groups in `self.block.dofmap` order (fixed_order.py), without
+        atomics."""
+        if not self.groups:
+            return u.new_zeros(self.space.n_dofs)
+        rc = torch.cat([self._batch(g["kernel"], u, params, g["cells"])
+                        for g in self.groups])
+        plan = sum_plan(self.block, "residual", self.block.dofmap, u.device)
+        return fixed_order_scatter(rc.reshape(-1), plan, self.space.n_dofs)
 
     def assemble_scalar(self, u, params):
         total = u.new_zeros(())
         for g in self.groups:
-            e, _ = self._batch(g["energy"], u, params, g["cells"])
+            e = self._batch(g["energy"], u, params, g["cells"])
             total = total + e.sum()
         return total
 
     def element_ops(self, u, params):
         """The facet element matrices of all groups as one lane-major
         (nd, nd, n_facets) block, in the order of `self.block.dofmap`."""
-        mats = [self._batch(g["jac"], u, params, g["cells"])[0]
+        mats = [self._batch(g["jac"], u, params, g["cells"])
                 for g in self.groups]
         return torch.cat(mats).permute(1, 2, 0).contiguous()

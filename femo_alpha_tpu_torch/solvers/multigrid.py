@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..spaces.fixed_order import fixed_order_scatter, sum_plan
+
 
 # --------------------------------------------------------------------------
 # transfer operators
@@ -213,42 +215,6 @@ def _batch_inv(D):
     return torch.linalg.inv(D)
 
 
-def _sum_plan(space, key, target, device):
-    """The fixed summation order of a scatter-add onto `target` (int64,
-    one target per source entry), cached on the space per key and device:
-    (uniq, inv) with uniq the distinct targets and inv (len(uniq), c) the
-    source positions of each, increasing, padded with one past the last
-    source (a zero)."""
-    ck = (key, str(device))
-    plan = space._index_cache.get(ck)
-    if plan is None:
-        target = np.asarray(target, dtype=np.int64).reshape(-1)
-        order = np.argsort(target, kind="stable")
-        uniq, starts, counts = np.unique(target[order], return_index=True,
-                                         return_counts=True)
-        inv = np.full((len(uniq), int(counts.max())), len(target),
-                      dtype=np.int64)
-        rank = np.arange(len(target)) - np.repeat(starts, counts)
-        inv[np.repeat(np.arange(len(uniq)), counts), rank] = order
-        plan = space._index_cache[ck] = (torch.as_tensor(uniq, device=device),
-                                         torch.as_tensor(inv, device=device))
-    return plan
-
-
-def _fixed_order_scatter(vals, plan, size):
-    """out (size, ...) with out[uniq[s]] = the sum of vals[inv[s, k]] over k
-    in order: index_add_ without atomics, so the same inputs give the same
-    bits on the card."""
-    uniq, inv = plan
-    src = torch.cat([vals, vals.new_zeros((1,) + vals.shape[1:])])
-    acc = src[inv[:, 0]]
-    for k in range(1, inv.shape[1]):
-        acc = acc + src[inv[:, k]]
-    out = vals.new_zeros((size,) + vals.shape[1:])
-    out[uniq] = acc
-    return out
-
-
 def block_jacobi_arrays(Ae, W, free):
     """Per-node value_size x value_size inverted diagonal blocks for each
     subspace of a MixedSpace, from cell-major element matrices
@@ -264,8 +230,8 @@ def block_jacobi_arrays(Ae, W, free):
             nc, nds, bs, nds, bs)
         # node-diagonal blocks: (nc, bs, bs, nds) -> (nc, nds, bs, bs)
         blocks = torch.diagonal(subA, dim1=1, dim2=3).permute(0, 3, 1, 2)
-        plan = _sum_plan(sub, "node_blocks", sub.scalar_dofmap, Ae.device)
-        D = _fixed_order_scatter(
+        plan = sum_plan(sub, "node_blocks", sub.scalar_dofmap, Ae.device)
+        D = fixed_order_scatter(
             blocks.reshape(nc * nds, bs * bs), plan, sub.n_scalar_dofs
         ).reshape(sub.n_scalar_dofs, bs, bs)
         o_g = int(W.offsets[i])
@@ -368,9 +334,9 @@ def dense_constrained(Ae, W, free):
     constrained dofs): the coarsest-level operator."""
     n = int(W.n_dofs)
     dm = np.asarray(W.dofmap, dtype=np.int64)
-    plan = _sum_plan(W, "dense", dm[:, :, None] * n + dm[:, None, :],
+    plan = sum_plan(W, "dense", dm[:, :, None] * n + dm[:, None, :],
                      Ae.device)
-    A = _fixed_order_scatter(Ae.reshape(-1), plan, n * n).reshape(n, n)
+    A = fixed_order_scatter(Ae.reshape(-1), plan, n * n).reshape(n, n)
     return A * free[:, None] * free[None, :] + torch.diag(1.0 - free)
 
 

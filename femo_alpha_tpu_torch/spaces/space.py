@@ -9,7 +9,8 @@ Local dof ordering inside a cell:
   dof a, component c; globally dof = scalar_dof*vs + c.
 
 Every scatter is written as the explicit adjoint stencil of its gather
-(slice-adds into a fresh tensor, or `index_add_`), never derived by
+(slice-adds into a fresh tensor, or spaces/fixed_order.py's fixed-order
+sums, which add without atomics), never derived by
 transposing the gather through autograd: the JAX package found its derived
 transposes miscompiled at large grids (femo_alpha_tpu/spaces/space.py
 scatter_add_T), so the port keeps the hand-written form.
@@ -22,6 +23,7 @@ import torch
 
 from ..elements import reference_element
 from ..mesh import Mesh
+from .fixed_order import fixed_order_scatter, sum_plan
 
 
 def _build_scalar_dofmap(mesh: Mesh, elem):
@@ -205,12 +207,12 @@ class FunctionSpace(_LaneTables):
         return x[self._dofmap_on(x.device)]
 
     def scatter_add(self, cell_vals):
-        """(nc, nd_local) -> (n_dofs,) scatter-add."""
+        """(nc, nd_local) -> (n_dofs,) scatter-add; each dof sums its
+        entries in cell-major order (fixed_order.py), without atomics."""
         if self._layout is not None:
             return self._layout.scatter(cell_vals)
-        idx = self._dofmap_on(cell_vals.device).reshape(-1)
-        out = cell_vals.new_zeros(self.n_dofs)
-        return out.index_add(0, idx, cell_vals.reshape(-1))
+        plan = sum_plan(self, "scatter", self.dofmap, cell_vals.device)
+        return fixed_order_scatter(cell_vals.reshape(-1), plan, self.n_dofs)
 
     def gather_T(self, x):
         """(n_dofs,) -> (nd_local, nc) lane-major cell-dof values."""

@@ -1,6 +1,7 @@
 """Tests of femo_alpha_tpu_torch that need a CUDA card: the Hopper kernels
 against their plain twins (the fused constrained operator at the slice's
-two smoothed-level shapes, and bit for bit from run to run), the launch
+two smoothed-level shapes, and bit for bit from run to run; K2 at K = 1..4
+on even, odd and misaligned inputs, and bit for bit), the launch
 counters, the card as the default device, the slice on the card
 against the same slice on the CPU, and the default aircraft configuration:
 the band Cholesky factor on the card against the CPU path, and a penalty
@@ -8,13 +9,17 @@ wing model on the card against the same model on the CPU; the transient
 shell (PlateSim, MG) on the card against the CPU, its checkpointed
 segments recomputed bit for bit and its V-cycle setup repeated bit for
 bit; modal analysis (LOBPCG + MG) on the card against the CPU, and
-OptimizationProblem and the csdl operations on the card by default. They
-skip without a card. The
+OptimizationProblem and the csdl operations on the card by default; the
+PAV wing's evaluate and stress backward bit for bit from one fresh model
+to the next, and the indexed gathers' backward bit for bit. They skip
+without a card. The
 file imports no jax, so on a machine without the JAX package it runs on
 its own:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -79,15 +84,39 @@ def test_k1_matches_twin(cuda, dtype, bar, nd, nc):
     assert _rel(ck.cell_matvec_T(A, x), ck.cell_matvec_T_plain(A, x)) <= bar
 
 
+K2_POWERS = [(1,), (1, 3), (1, 2, 3), (0, 1, 2, 3)]
+
+
+def _k2_inputs(gen, powers, nc, dtype, offset=0):
+    """A seeded basis (K, 39, 39, nc), as a view `offset` elements into its
+    buffer (offset 1 is off 16-byte alignment: the scalar instance), and
+    theta in [0.1, 0.3]."""
+    n = len(powers) * 39 * 39 * nc
+    flat = torch.randn((n + offset,), generator=gen, device="cuda",
+                       dtype=dtype) * 1e3
+    th = 0.1 + 0.2 * torch.rand((nc,), generator=gen, device="cuda",
+                                dtype=dtype)
+    return flat[offset:].view(len(powers), 39, 39, nc), th
+
+
 @pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-6),
                                        (torch.float64, 1e-15)])
-def test_k2_matches_twin(cuda, dtype, bar):
-    B = torch.randn((2, 39, 39, 1000), generator=cuda, device="cuda",
-                    dtype=dtype)
-    th = 0.1 + 0.2 * torch.rand((1000,), generator=cuda, device="cuda",
-                                dtype=dtype)
-    out = ck.affine_combine(B, th, (1, 3))
-    assert _rel(out, ck.affine_combine_plain(B, th, (1, 3))) <= bar
+@pytest.mark.parametrize("powers", K2_POWERS)
+@pytest.mark.parametrize("nc,offset", [(800, 0), (801, 0), (2388, 0),
+                                       (4096, 0), (800, 1)])
+def test_k2_matches_twin(cuda, dtype, bar, powers, nc, offset):
+    B, th = _k2_inputs(cuda, powers, nc, dtype, offset)
+    out = ck.affine_combine(B, th, powers)
+    assert out.shape == (39, 39, nc) and out.dtype == dtype
+    assert _rel(out, ck.affine_combine_plain(B, th, powers)) <= bar
+
+
+@pytest.mark.parametrize("nc,offset", [(2388, 0), (801, 0), (800, 1)])
+def test_k2_is_bitwise_repeatable(cuda, nc, offset):
+    for powers in K2_POWERS:
+        B, th = _k2_inputs(cuda, powers, nc, torch.float64, offset)
+        assert torch.equal(ck.affine_combine(B, th, powers),
+                           ck.affine_combine(B, th, powers))
 
 
 def test_k2_backward_matches_twin_autograd(cuda):
@@ -447,3 +476,65 @@ def test_optimization_problem_defaults_to_the_card(cuda):
                      "nu": np.full(mesh.n_cells, 0.3),
                      "uhat": np.zeros(3 * mesh.n_nodes)})
     assert u.is_cuda and op.apply_inverse_jacobian(u, "rev").is_cuda
+
+
+PAV_WING = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "pav_like_wing_2388.msh")
+
+
+def _pav_wing_run():
+    """A fresh RMShellModel of the PAV wing (penalty BCs, mesh tags, f64,
+    band path), one evaluate at h = 0.005 under the PAV example's elliptic
+    4,000 Pa lift, and the backward of aggregated_stress, as chip_smoke.py's
+    wing phase builds them: {name: tensor} of u, every output and the
+    thickness gradient."""
+    from femo_alpha_tpu_torch.mesh import readFEAMesh
+
+    mesh = readFEAMesh(PAV_WING)
+    model = RMShellModel(mesh, shell_bc_func=lambda x: x[:, 1] < 1e-9,
+                         element_wise_material=True,
+                         mesh_tags={t: np.asarray(c)
+                                    for t, c in mesh.cell_tags.items()})
+    assert model.band.b > 0
+    nel, nn = mesh.n_cells, mesh.n_nodes
+    eta = np.clip(mesh.coords[:, 1] / mesh.coords[:, 1].max(), 0.0, 1.0)
+    P = np.zeros((nn, 3))
+    P[:, 2] = 4000.0 * np.sqrt(1.0 - eta ** 2)
+    kw = dict(dtype=torch.float64, device="cuda")
+    th = torch.full((nel,), 0.005, **kw).requires_grad_(True)
+    out = model.evaluate(torch.as_tensor(P, **kw), th,
+                         torch.full((nel,), 71.7e9, **kw),
+                         torch.full((nel,), 0.33, **kw),
+                         torch.full((nel,), 2780.0, **kw))
+    out.aggregated_stress.backward()
+    names = ["disp_solid", "aggregated_stress", "disp_extracted",
+             *model.fea.outputs, *model.fea.field_outputs]
+    vals = {k: getattr(out, k).detach().clone() for k in names}
+    vals["thickness_grad"] = th.grad.clone()
+    return vals
+
+
+def test_wing_evaluate_and_stress_backward_are_bitwise_repeatable(cuda):
+    """Two fresh models of the PAV wing on the card give the same bits in
+    u, every output and the gradient of aggregated_stress: every sum on
+    the path runs in a fixed order, so a design study repeats itself from
+    run to run."""
+    a, b = _pav_wing_run(), _pav_wing_run()
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    assert not differ, differ
+
+
+def test_indexed_gather_backward_is_bitwise_repeatable(cuda):
+    """The backward of x[dofmap] on the PAV wing's space (the gathers of
+    the unstructured assembly) gives the same bits every time."""
+    from femo_alpha_tpu_torch.mesh import readFEAMesh
+
+    pde = RMShellPDE(readFEAMesh(PAV_WING), element_wise_material=True,
+                     device="cuda")
+    W = pde.W
+    x = torch.randn(W.n_dofs, generator=cuda, device="cuda",
+                    dtype=torch.float64).requires_grad_(True)
+    G = torch.randn((pde.mesh.n_cells, W.nd_local), generator=cuda,
+                    device="cuda", dtype=torch.float64)
+    grads = [torch.autograd.grad(W.gather(x), x, G)[0] for _ in range(5)]
+    assert all(torch.equal(g, grads[0]) for g in grads[1:])

@@ -66,9 +66,9 @@ def _basis(nd=13, nc=256, K=2, seed=3):
             rng.uniform(0.1, 0.3, nc))
 
 
-def test_k2_twin_matches_reference_f64_combine():
-    B, th = _basis()
-    powers = (1, 3)
+@pytest.mark.parametrize("powers", [(1,), (1, 3), (1, 2, 3), (0, 1, 2, 3)])
+def test_k2_twin_matches_reference_f64_combine(powers):
+    B, th = _basis(K=len(powers))
     out = ck.affine_combine(interop.affine_basis_to_lane(B, "lane"),
                             interop.to_tensor(th), powers).numpy()
     ref = np.asarray(ref_combine(jnp.asarray(B), jnp.asarray(th), powers,
