@@ -271,6 +271,28 @@ class RMShellModel:
         return v[torch.as_tensor(np.asarray(idx, dtype=np.int64),
                                  device=self.device)].reshape(-1)
 
+    def fe_inputs(self, force_vector, thickness, E, nu, density=None):
+        """The model's inputs in the FE order, as evaluate hands them to
+        the FEA: thickness, E, nu, F_solid, uhat (zero) and, when given,
+        density. Without density the dict is the displacement state's
+        parameters (what its ImplicitPDE's residual takes)."""
+        igi = self.mesh.input_global_indices
+        oci = self.mesh.original_cell_index
+        mat_idx = oci if oci is not None else igi
+        f_idx = (oci if self.elementwise_pressure and oci is not None
+                 else igi)
+        inputs = {
+            "thickness": self._reorder(thickness, mat_idx),
+            "E": self._reorder(E, mat_idx),
+            "nu": self._reorder(nu, mat_idx),
+            "F_solid": self._reorder(force_vector, f_idx),
+            "uhat": torch.zeros(3 * self.nn, dtype=self.dtype,
+                                device=self.device),
+        }
+        if density is not None:
+            inputs["density"] = self._reorder(density, mat_idx)
+        return inputs
+
     def evaluate(self, force_vector, thickness, E, nu, density,
                  node_disp=None, is_pressure=True):
         """Inputs as tensors or arrays in the CALLER's node/cell order.
@@ -281,21 +303,8 @@ class RMShellModel:
         if node_disp is not None:
             raise _not_ported("node_disp (mesh-motion shape input)")
         pde = self.shell_pde
-        igi = self.mesh.input_global_indices
-        oci = self.mesh.original_cell_index
-        mat_idx = oci if oci is not None else igi
-        f_idx = (oci if self.elementwise_pressure and oci is not None
-                 else igi)
-        inputs = {
-            "thickness": self._reorder(thickness, mat_idx),
-            "E": self._reorder(E, mat_idx),
-            "nu": self._reorder(nu, mat_idx),
-            "density": self._reorder(density, mat_idx),
-            "F_solid": self._reorder(force_vector, f_idx),
-            "uhat": torch.zeros(3 * self.nn, dtype=self.dtype,
-                                device=self.device),
-        }
-        out = self.model.evaluate(inputs)
+        out = self.model.evaluate(
+            self.fe_inputs(force_vector, thickness, E, nu, density))
         out.add_lazy("disp_extracted",
                      lambda: DisplacementExtractionModel(pde).evaluate(
                          out.disp_solid))

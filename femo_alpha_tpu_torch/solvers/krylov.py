@@ -17,8 +17,9 @@ def _identity(x):
 def cg_solve(matvec, b, M=None, tol=1e-10, maxiter=1000, restarts=1):
     """Preconditioned conjugate gradient from a zero initial guess.
 
-    Returns (x, info) with info = dict(iters, resnorm, converged). matvec
-    and M are functions v -> Av / M^{-1}v.
+    Returns (x, info) with info = dict(iters, passes, resnorm, converged):
+    `passes` lists the iterations of each pass (the first, then each
+    restart that ran). matvec and M are functions v -> Av / M^{-1}v.
 
     restarts: after the recurrence-residual test fires, recompute the TRUE
     residual b - A x and re-enter the loop if it still exceeds the target
@@ -27,7 +28,9 @@ def cg_solve(matvec, b, M=None, tol=1e-10, maxiter=1000, restarts=1):
     x = torch.zeros_like(b)
     target = tol * float(torch.linalg.norm(b))
     k = 0
+    passes = []
     for _ in range(1 + max(0, restarts)):
+        k0 = k
         r = b - matvec(x)
         z = M(r)
         rz = torch.dot(r, z)
@@ -42,7 +45,9 @@ def cg_solve(matvec, b, M=None, tol=1e-10, maxiter=1000, restarts=1):
             p = z + (rz_new / rz) * p
             rz = rz_new
             k += 1
+        if k > k0 or not passes:
+            passes.append(k - k0)
     resnorm = float(torch.linalg.norm(b - matvec(x)))
-    info = {"iters": k, "resnorm": resnorm,
+    info = {"iters": k, "passes": passes, "resnorm": resnorm,
             "converged": resnorm <= max(target, 1e-300)}
     return x, info

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's slice on one GPU.
 
-    python3 profile_slice.py
+    python3 profile_slice.py [NX NY]
 
 Drives the same slice as chip_smoke.py — RMShellModel.evaluate +
 compliance.backward() on the 128x32 strong-BC cantilever plate, f64, on
-the card — and prints, one line each:
+the card (NX x NY for another size of the same plate, e.g. 512 128, the
+scale point) — and prints, one line each:
 
 - `first`: the first call's wall time (affine bases, MG setup, solves);
 - `warm`: three warm calls' wall times, host clock, each ending in
@@ -92,9 +93,11 @@ def _busy_us(intervals):
 
 
 def main():
-    if len(sys.argv) > 1:
-        raise SystemExit(f"profile_slice: takes no arguments, got "
+    if len(sys.argv) not in (1, 3):
+        raise SystemExit(f"profile_slice: takes no arguments or NX NY, got "
                          f"{sys.argv[1:]}")
+    nx, ny = (int(a) for a in sys.argv[1:]) if len(sys.argv) == 3 \
+        else (128, 32)
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -108,7 +111,7 @@ def main():
 
     _label_spans()
     ck.load_library()
-    mesh = createRectangleMesh(128, 32, (0, 0), (10.0, 2.0), "quad", gdim=3)
+    mesh = createRectangleMesh(nx, ny, (0, 0), (10.0, 2.0), "quad", gdim=3)
     model = RMShellModel(mesh, shell_bc_func=lambda x: x[:, 0] < 1e-12,
                          element_wise_material=True, PENALTY_BC=False,
                          device="cuda")

@@ -11,6 +11,7 @@ setup(
                                     "femo_alpha_tpu_torch",
                                     "femo_alpha_tpu_torch.*"]),
     package_data={"femo_alpha_tpu.native": ["meshops.cpp"],
+                  "femo_alpha_tpu_torch": ["bench_baseline.json"],
                   "femo_alpha_tpu_torch.assembly": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "scipy"],

@@ -27,8 +27,8 @@ def test_every_module_imports_without_jax():
     mods = _all_modules()
     assert "femo_alpha_tpu_torch.assembly.cuda_kernels" in mods
     assert "femo_alpha_tpu_torch.models.rm_shell.model" in mods
-    # the default aircraft configuration's, the transient shell's and the
-    # optimization and modal path's modules, among them
+    # the default aircraft configuration's, the transient shell's, the
+    # optimization and modal path's and the benchmark's modules, among them
     for m in ("io.gmsh", "mesh.wing", "solvers.band", "assembly.facets",
               "models.dynamic_rm_shell", "models.dynamic_rm_shell.plate_sim",
               "models.dynamic_rm_shell.mg", "spaces.pointeval",
@@ -36,7 +36,8 @@ def test_every_module_imports_without_jax():
               "csdl_opt.state_operation", "csdl_opt.output_operation",
               "utils", "utils.logging", "utils.timing", "io.checkpoint",
               "solvers.eigen", "solvers.direct",
-              "models.rm_shell.buckling"):
+              "models.rm_shell.buckling", "utils.quality", "benchmarks",
+              "bench"):
         assert "femo_alpha_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
