@@ -49,7 +49,22 @@ compare runs). Then modal analysis of the 128x32 plate
 checked against the JAX package's eigenvalues, a host eigsh of the
 same pencil, the residual norms, M-orthonormality and a central
 difference of the modal_eigenvalues gradient; both paths must go
-through the fused operator and K2. Last, the scale point: LibraryBench
+through the fused operator and K2. Then the shape inputs: the 128x32
+plate moved by a smooth planform change (node_disp, benchmarks.
+planform_shape), evaluate + compliance backward in node_disp and
+thickness — the fine operator and every MG level assembled directly
+while node_disp requires grad, the cached bases and K2 without a shape
+gradient — checked against the JAX package's digits, a Richardson
+central difference, the solve-quality gate and a host SuperLU solve of
+the moved system, and timed (first call, a new node_disp, the basis
+build, the cached call); the shape study of
+examples/advanced_examples/shape_opt/ex_plate_shape_opt.py at its 32x8
+(the dense path, which applies neither kernel) for SHAPE_MAXITER SLSQP
+iterations against the JAX history and nit / nfev / njev; and the PAV
+wing under nodal forces (is_pressure=False: the force-to-pressure CG
+over the fused operator on the VF mass form), its stress gradient in
+thickness and forces against the JAX digits and a central difference,
+and once moved in-plane. Last, the scale point: LibraryBench
 at 512x128 (988,806 dofs, five MG levels), checked by bench.py's
 quality gate, against a direct solve of the same assembled system on the
 card (band Cholesky + refinement) and, within that direct solve's own
@@ -136,6 +151,40 @@ MODAL_FD_BAR = 1e-5
 SCALE_GOLDEN = os.path.join(HERE, "tests", "data",
                             "golden_u_512x128_strong.npz")
 SCALE_REPEATS = 3
+# the JAX package (femo_alpha_tpu RMShellModel, f64, CPU) at the inputs of
+# phase_shape: the 128x32 bench plate moved by benchmarks.planform_shape,
+# compliance, |dJ/d node_disp|, |dJ/dh|, the derivative along
+# benchmarks.planform_direction and sum(dJ/dh)
+# (tools/shape_reference_digits.py shape)
+SHAPE_DIGITS = {"compliance": (4.404967150873329e-03, 1e-8),
+                "grad_node_disp_norm": (1.738741081761535e-04, 1e-6),
+                "grad_thickness_norm": (4.957762586636705e-04, 1e-6),
+                "dir_deriv": (-3.321142572027133e-05, 1e-6),
+                "grad_thickness_sum": (2.785451568194331e-02, 1e-6)}
+SHAPE_FD_BAR = 1e-5
+SHAPE_ITERS_SLACK = 2       # CG iterations above the headline's, per solve
+# ... and on examples/advanced_examples/shape_opt/ex_plate_shape_opt.py
+# (32x8, dense path) at maxiter SHAPE_MAXITER, scipy 1.17.0
+# (tools/shape_reference_digits.py shape_opt)
+SHAPE_MAXITER = 3
+SHAPE_OPT_DIGITS = {"J0": 4.386987527236644e-03,
+                    "history": (9.981073640418477e-01, 9.891750774951920e-01,
+                                9.688409693002723e-01),
+                    "compliance": 4.250293248166040e-03,
+                    "nit": 3, "nfev": 4, "njev": 4}
+SHAPE_OPT_BAR = 1e-6
+# ... and on the PAV wing with the PAV lift as nodal forces
+# (benchmarks.wing_nodal_forces), is_pressure=False, h = 0.005, the second
+# evaluate at these inputs; then with the in-plane node_disp
+# benchmarks.wing_sweep (tools/shape_reference_digits.py pressure)
+PRESSURE_DIGITS = {"aggregated_stress": (4.307757920597484e+08, 1e-8),
+                   "compliance": (1.668161962462594e+01, 1e-8),
+                   "mass": (3.467815462265157e+02, 1e-8),
+                   "grad_thickness_norm": (3.176724170610722e+10, 1e-6),
+                   "grad_force_norm": (3.935955269507130e+05, 1e-6),
+                   "moved_aggregated_stress": (4.308402191909338e+08, 1e-8),
+                   "moved_compliance": (1.671644644135762e+01, 1e-8)}
+PRESSURE_FD_BAR = 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3, and the rates outside the
 # tensor cores, which none of these kernels use
@@ -622,7 +671,8 @@ def phase_slice(ck):
         fail(f"rel_res {rel_res:.3e} > max(1e-8, 2*{res_floor:.3e})")
     if not nodal <= NODAL_BAR:
         fail(f"nodal error vs direct {nodal:.3e} > {NODAL_BAR:.0e}")
-    return launches
+    return launches, {"forward": out["iters_fwd"],
+                      "adjoint": out["iters_adj"]}
 
 
 def _device_ops(fn):
@@ -1298,6 +1348,409 @@ def phase_modal(ck):
     return launches
 
 
+def _launch_delta(ck, before):
+    return {k: v - before[k] for k, v in ck.launch_counts().items()}
+
+
+def phase_shape(ck, slice_iters):
+    """Shape gradients on the card: RMShellModel.evaluate with node_disp
+    (benchmarks.planform_shape in y) on LibraryBench's 128x32 plate (the MG
+    path) and compliance.backward() in node_disp and thickness; the
+    operator and the MG levels assembled directly while node_disp
+    requires grad, the cached affine bases and K2 without a shape
+    gradient."""
+    import numpy as np
+    import torch
+
+    from femo_alpha_tpu_torch.assembly.affine import CachedAffineAssembler
+    from femo_alpha_tpu_torch.benchmarks import (
+        LibraryBench,
+        planform_direction,
+        planform_shape,
+    )
+    from femo_alpha_tpu_torch.utils.quality import (
+        direct_crosscheck,
+        residual_and_floor,
+    )
+
+    t_phase = time.perf_counter()
+    b = LibraryBench(nx=128, ny=32)  # no device=: the card by default
+    model, pde = b.model, b.pde
+    n_levels = len(model.mg.levels)
+    kw = dict(dtype=torch.float64, device="cuda")
+    nd0 = torch.zeros((model.nn, 3), **kw)
+    nd0[:, 1] = torch.as_tensor(planform_shape(model.mesh.coords), **kw)
+    dnd = torch.zeros_like(nd0)
+    dnd[:, 1] = torch.as_tensor(planform_direction(model.mesh.coords), **kw)
+
+    def run(nd, th, shape_grad=True, backward=True):
+        ndt = nd.clone().requires_grad_(shape_grad)
+        tht = th.clone().requires_grad_(backward)
+        out = model.evaluate(b.f, tht, b.E, b.nu, b.rho, node_disp=ndt)
+        J = out.compliance
+        if backward:
+            J.backward()
+        torch.cuda.synchronize()
+        return float(J.detach()), out.disp_solid.detach(), ndt.grad, tht.grad
+
+    def timed(fn):
+        """(result, wall s, launches, CG iterations) of one call."""
+        before = ck.launch_counts()
+        t = time.perf_counter()
+        r = fn()
+        wall = time.perf_counter() - t
+        its = {k: v["iters"] for k, v in pde.last_info.items()}
+        return r, wall, _launch_delta(ck, before), its
+
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    (J, u, g_nd, g_th), first_s, first_l, first_it = timed(
+        lambda: run(nd0, b.th0))
+    nd1 = 1.02 * nd0
+    _, direct_s, direct_l, direct_it = timed(lambda: run(nd1, b.th0))
+    _, build_s, build_l, build_it = timed(
+        lambda: run(nd1, 1.01 * b.th0, shape_grad=False))
+    _, cached_s, cached_l, cached_it = timed(
+        lambda: run(nd1, 1.02 * b.th0, shape_grad=False))
+    launches = ck.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the direct-assembly call again, split: the direct assemblies (each
+    # between two synchronizes) and the rest (solves, V-cycle setup,
+    # outputs, backward)
+    asm = [0.0, 0]
+    direct = CachedAffineAssembler.direct
+
+    def timed_direct(self, u_, params):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        Ae = direct(self, u_, params)
+        torch.cuda.synchronize()
+        asm[0] += time.perf_counter() - t
+        asm[1] += 1
+        return Ae
+
+    CachedAffineAssembler.direct = timed_direct
+    try:
+        _, split_s, _, _ = timed(lambda: run(1.03 * nd0, b.th0))
+    finally:
+        CachedAffineAssembler.direct = direct
+    ops_direct = _device_ops(lambda: run(1.04 * nd0, b.th0))
+    ops_cached = _device_ops(
+        lambda: run(nd1, 1.03 * b.th0, shape_grad=False))
+
+    # a Richardson central difference along the smooth direction, each
+    # side one evaluate on the direct path
+    def fd(eps):
+        jp, jm = (run(nd0 + s * eps * dnd, b.th0, backward=False)[0]
+                  for s in (1.0, -1.0))
+        return (jp - jm) / (2 * eps)
+
+    fdR = (4.0 * fd(1e-2) - fd(2e-2)) / 3.0
+    ad = float(torch.sum(g_nd * dnd))
+    fd_err = abs(ad - fdR) / abs(fdR)
+    got = {"compliance": J,
+           "grad_node_disp_norm": float(torch.linalg.norm(g_nd)),
+           "grad_thickness_norm": float(torch.linalg.norm(g_th)),
+           "dir_deriv": ad, "grad_thickness_sum": float(g_th.sum())}
+    errs = {k: abs(got[k] / want - 1.0)
+            for k, (want, _) in SHAPE_DIGITS.items()}
+
+    # quality of the moved system: the gate and a host SuperLU solve of the
+    # same assembled system
+    params = model.fe_inputs(b.f, b.th0, b.E, b.nu, node_disp=nd0)
+    rel_res, res_floor = residual_and_floor(pde, params, u)
+    t0 = time.perf_counter()
+    nodal = direct_crosscheck(pde, params, u)["nodal_l2"]
+    direct_solve_s = time.perf_counter() - t0
+    # the kernels at the moved plate's shapes against their twins
+    with torch.no_grad():
+        Ae = pde.element_matrices_fn.direct(None, params)
+        x = torch.randn(b.n_dofs, generator=torch.Generator(device="cuda")
+                        .manual_seed(7), **kw)
+        kerr, kcases = {}, []
+        kerr["fused"], case = fused_case(ck, "fused/moved", Ae,
+                                         pde._op_specs[0], pde.free_mask, x)
+        kcases.append(case)
+        kerr["k2"], case = k2_case(ck, "k2/moved",
+                                   pde.element_matrices_fn.prepare(params),
+                                   b.th0, (1, 3))
+        kcases.append(case)
+    finite = (bool(torch.isfinite(u).all())
+              and bool(torch.isfinite(g_nd).all())
+              and bool(torch.isfinite(g_th).all()))
+    say("shape", mesh="128x32", n_dofs=b.n_dofs, mg_levels=n_levels,
+        max_abs_dy=f"{float(nd0.abs().max()):.4f}",
+        **{k: f"{v:.15e}" for k, v in got.items()},
+        rel_err_vs_jax=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}),
+        fd=f"{fdR:.9e}", adjoint=f"{ad:.9e}", fd_rel_err=f"{fd_err:.3e}",
+        rel_res=f"{rel_res:.3e}", res_floor=f"{res_floor:.3e}",
+        nodal_err_vs_direct=f"{nodal:.3e}",
+        direct_s=f"{direct_solve_s:.2f}",
+        first_call_s=f"{first_s:.4f}", warm_new_uhat_s=f"{direct_s:.4f}",
+        basis_build_s=f"{build_s:.4f}", warm_cached_s=f"{cached_s:.4f}",
+        split_call_s=f"{split_s:.4f}",
+        split_direct_assembly_s=f"{asm[0]:.4f}",
+        split_direct_assemblies=asm[1],
+        device_ops_new_uhat=ops_direct, device_ops_cached=ops_cached,
+        iters_first=json.dumps(first_it), iters_new_uhat=json.dumps(direct_it),
+        iters_build=json.dumps(build_it), iters_cached=json.dumps(cached_it),
+        iters_headline=json.dumps(slice_iters),
+        launches_first=json.dumps(first_l),
+        launches_new_uhat=json.dumps(direct_l),
+        launches_build=json.dumps(build_l),
+        launches_cached=json.dumps(cached_l), launches=json.dumps(launches),
+        peak_mem_gb=f"{peak_gb:.3f}",
+        kernels_at_moved_shapes=json.dumps(kcases),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if not finite or g_nd.shape != (model.nn, 3) or g_th.shape != (4096,):
+        fail("shape: non-finite or mis-shaped state / gradients")
+    for k, (want, bar) in SHAPE_DIGITS.items():
+        if not errs[k] <= bar:
+            fail(f"shape {k} {got[k]:.9e} vs the JAX package's {want:.9e} "
+                 f"(bar {bar})")
+    if not fd_err <= SHAPE_FD_BAR:
+        fail(f"shape FD {fdR:.9e} vs adjoint {ad:.9e}: rel {fd_err:.3e}")
+    if not rel_res <= max(1e-8, 2.0 * res_floor):
+        fail(f"shape rel_res {rel_res:.3e} > max(1e-8, 2*{res_floor:.3e})")
+    if not nodal <= NODAL_BAR:
+        fail(f"shape nodal error vs direct {nodal:.3e} > {NODAL_BAR:.0e}")
+    for k, err in kerr.items():
+        bar = K2_BAR["float64"] if k == "k2" else FUSED_BAR["float64"]
+        if not err <= bar:
+            fail(f"shape {k} at the moved plate: rel err {err:.3e} > {bar}")
+    if min(launches["constrained_matvec_T"], launches["affine_combine"]) <= 0 \
+            or launches["cell_matvec_T"] != 0:
+        fail(f"shape: the path's kernels were not launched as expected: "
+             f"{launches}")
+    # while node_disp requires grad no level combines a basis; without a
+    # shape gradient each level combines its kept basis once
+    if direct_l["affine_combine"] != 0 or asm[1] != n_levels:
+        fail(f"shape: the call at a new uhat combined bases "
+             f"({direct_l}) or assembled {asm[1]} of {n_levels} levels "
+             "directly")
+    if cached_l["affine_combine"] != n_levels:
+        fail(f"shape: the cached call made {cached_l['affine_combine']} K2 "
+             f"combines, not one per level ({n_levels})")
+    # the moved plate keeps the headline's CG counts: successive designs
+    # of the unmoved plate already move them by up to 2 (the restart pass)
+    for k in ("forward", "adjoint"):
+        if cached_it[k] > slice_iters[k] + SHAPE_ITERS_SLACK:
+            fail(f"shape: the cached call's {k} solve took {cached_it[k]} "
+                 f"CG iterations, the headline's {slice_iters[k]} (+"
+                 f"{SHAPE_ITERS_SLACK})")
+    return launches
+
+
+def phase_shape_opt(ck):
+    """The shape study of examples/advanced_examples/shape_opt/
+    ex_plate_shape_opt.py at its own 32x8 (the dense path): min
+    compliance/J0 over the y motion of every node, root frozen, +-0.2,
+    ftol 1e-12, through OptimizationProblem / scipy SLSQP for
+    SHAPE_MAXITER iterations."""
+    import numpy as np
+    import scipy
+    import torch
+
+    from femo_alpha_tpu_torch.mesh import createRectangleMesh
+    from femo_alpha_tpu_torch.models import RMShellModel
+    from femo_alpha_tpu_torch.opt import OptimizationProblem
+
+    t_phase = time.perf_counter()
+    mesh = createRectangleMesh(32, 8, (0, 0), (10.0, 2.0), "quad", gdim=3)
+    model = RMShellModel(mesh, shell_bc_func=lambda x: x[:, 0] < 1e-12,
+                         element_wise_material=True, PENALTY_BC=False)
+    nel, nn = mesh.n_cells, mesh.n_nodes
+    kw = dict(dtype=torch.float64, device="cuda")
+    E, nu = torch.full((nel,), 4.32e8, **kw), torch.zeros(nel, **kw)
+    rho, th = torch.full((nel,), 100.0, **kw), torch.full((nel,), 0.2, **kw)
+    force = torch.zeros(3 * nn, **kw)
+    force[2::3] = 2.0
+
+    def ev(dvs):
+        dy = dvs["dy"]
+        z = torch.zeros_like(dy)
+        return model.evaluate(force, th, E, nu, rho,
+                              node_disp=torch.stack([z, dy, z], dim=1),
+                              is_pressure=True)
+
+    J0 = float(ev({"dy": torch.zeros(nn, **kw)}).compliance)
+    root = np.asarray(mesh.coords[:, 0]) < 1e-12
+    prob = OptimizationProblem(ev)
+    prob.add_design_variable("dy", np.zeros(nn),
+                             lower=np.where(root, 0.0, -0.2),
+                             upper=np.where(root, 0.0, 0.2))
+    prob.set_objective("compliance", scaler=1.0 / J0)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    dvs, res = prob.solve(maxiter=SHAPE_MAXITER, ftol=1e-12, report=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    with torch.no_grad():
+        J1 = float(ev({"dy": dvs["dy"]}).compliance)
+    hist = list(prob.history)
+    nit = max(res.nit, 1)
+    errs = {f"history[{i}]": abs(a / b - 1.0) for i, (a, b) in
+            enumerate(zip(hist, SHAPE_OPT_DIGITS["history"]))}
+    errs["J0"] = abs(J0 / SHAPE_OPT_DIGITS["J0"] - 1.0)
+    errs["compliance"] = abs(J1 / SHAPE_OPT_DIGITS["compliance"] - 1.0)
+    dy = dvs["dy"].detach().cpu().numpy()
+    say("shape_opt", mesh="32x8", n_dofs=model.shell_pde.W.n_dofs,
+        design_vars=nn, maxiter=SHAPE_MAXITER, scipy=scipy.__version__,
+        message=repr(res.message), nit=res.nit, nfev=res.nfev,
+        njev=res.njev, J0=f"{J0:.15e}",
+        history=json.dumps([f"{v:.15e}" for v in hist]),
+        compliance=f"{J1:.15e}",
+        rel_err_vs_jax=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}),
+        max_abs_dy=f"{float(np.abs(dy).max()):.6f}",
+        wall_s=f"{wall:.3f}", wall_per_iter_s=f"{wall / nit:.3f}",
+        model_s_per_iter=f"{prob.model_seconds / nit:.3f}",
+        evaluate_per_iter=f"{prob.counts['evaluate'] / nit:.2f}",
+        backward_per_iter=f"{prob.counts['backward'] / nit:.2f}",
+        launches=json.dumps(launches),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if not all(np.isfinite(hist)) or len(hist) != SHAPE_MAXITER:
+        fail(f"shape_opt: history {hist}")
+    if np.any(dy[root] != 0.0):
+        fail("shape_opt: a root node moved")
+    for k, e in errs.items():
+        if not e <= SHAPE_OPT_BAR:
+            fail(f"shape_opt {k}: rel err {e:.3e} vs the JAX package's "
+                 f"digits (bar {SHAPE_OPT_BAR})")
+    for k in ("nit", "nfev", "njev"):
+        if getattr(res, k) != SHAPE_OPT_DIGITS[k]:
+            fail(f"shape_opt {k} {getattr(res, k)} vs the JAX package's "
+                 f"{SHAPE_OPT_DIGITS[k]}")
+    return launches
+
+
+def phase_pressure(ck):
+    """Nodal forces on the card: the PAV wing (penalty BCs, band path) with
+    the PAV lift as nodal forces, RMShellModel.evaluate(is_pressure=False)
+    (the force-to-pressure solve: CG over the fused operator on the VF
+    mass form) and aggregated_stress.backward() in thickness and in the
+    forces; then once with a small in-plane node_disp."""
+    import numpy as np
+    import torch
+
+    from femo_alpha_tpu_torch.benchmarks import (
+        wing_inputs,
+        wing_nodal_forces,
+        wing_sweep,
+    )
+    from femo_alpha_tpu_torch.mesh import readFEAMesh
+    from femo_alpha_tpu_torch.models import RMShellModel
+
+    t_phase = time.perf_counter()
+    mesh = readFEAMesh(WING_MESH)
+    nel = mesh.n_cells
+    model = RMShellModel(mesh, shell_bc_func=lambda x: x[:, 1] < 1e-9,
+                         element_wise_material=True,
+                         mesh_tags={t: np.asarray(c)
+                                    for t, c in mesh.cell_tags.items()})
+    kw = dict(dtype=torch.float64, device="cuda")
+    _, E, nu, rho = wing_inputs(mesh, "cuda", **PAV_LOAD)
+    F0 = torch.as_tensor(wing_nodal_forces(mesh, PAV_LOAD["amplitude"]), **kw)
+    th0 = torch.full((nel,), 0.005, **kw)
+
+    def run(F, th, node_disp=None, backward=True):
+        Ft = F.clone().requires_grad_(backward)
+        tht = th.clone().requires_grad_(backward)
+        out = model.evaluate(Ft, tht, E, nu, rho, node_disp=node_disp,
+                             is_pressure=False)
+        if backward:
+            out.aggregated_stress.backward()
+        torch.cuda.synchronize()
+        return out, Ft.grad, tht.grad
+
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    run(F0, th0)
+    first_s = time.perf_counter() - t0
+    mpde = model._force_to_pressure.pde
+    mass_iters = {k: v["iters"] for k, v in mpde.last_info.items()}
+    t0 = time.perf_counter()
+    run(1.01 * F0, 1.01 * th0)
+    warm_s = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the digits at the nominal inputs, warm-started as the JAX package's
+    # (tools/shape_reference_digits.py): a penalty system's CG from zero
+    # stops ~1e-8 from the converged compliance
+    out, g_F, g_th = run(F0, th0)
+    got = {"aggregated_stress": float(out.aggregated_stress.detach()),
+           "compliance": float(out.compliance.detach()),
+           "mass": float(out.mass.detach()),
+           "grad_thickness_norm": float(torch.linalg.norm(g_th)),
+           "grad_force_norm": float(torch.linalg.norm(g_F))}
+    with torch.no_grad():
+        # the mass solve alone: its fused-operator launches and time
+        F_fe = model.fe_inputs(F0, th0, E, nu)["F_solid"]
+        before = ck.launch_counts()
+        t0 = time.perf_counter()
+        model.force_to_pressure(F_fe)
+        torch.cuda.synchronize()
+        mass_s = time.perf_counter() - t0
+        mass_l = _launch_delta(ck, before)
+        # a central difference of the stress along a seeded force direction
+        dF = F0 * torch.as_tensor(np.random.default_rng(9).standard_normal(
+            tuple(F0.shape)), **kw)
+        eps = 1e-4
+        fd = (float(run(F0 + eps * dF, th0, backward=False)[0]
+                    .aggregated_stress)
+              - float(run(F0 - eps * dF, th0, backward=False)[0]
+                      .aggregated_stress)) / (2 * eps)
+        ad = float(torch.sum(g_F * dF))
+        fd_err = abs(fd - ad) / abs(fd)
+        # the wing moved in-plane: facets, band and uhat together
+        t0 = time.perf_counter()
+        out_m = run(F0, th0, node_disp=wing_sweep(mesh), backward=False)[0]
+        moved_s = time.perf_counter() - t0
+        got["moved_aggregated_stress"] = float(out_m.aggregated_stress)
+        got["moved_compliance"] = float(out_m.compliance)
+        # the fused operator at the VF mass form's shape against its twin
+        zero = torch.zeros(mpde.n_dofs, **kw)
+        Ae_m = mpde._assemble_ops(zero, {"F_vec": F_fe})[0]
+        x = torch.randn(mpde.n_dofs, generator=torch.Generator(device="cuda")
+                        .manual_seed(8), **kw)
+        kerr, case = fused_case(ck, "fused/vf_mass", Ae_m, mpde.form.space,
+                                torch.ones(mpde.n_dofs, **kw), x)
+    errs = {k: abs(got[k] / want - 1.0)
+            for k, (want, _) in PRESSURE_DIGITS.items()}
+    finite = (bool(torch.isfinite(g_F).all())
+              and bool(torch.isfinite(g_th).all()))
+    say("pressure", mesh=os.path.basename(WING_MESH), cells=nel,
+        n_dofs=model.shell_pde.W.n_dofs, vf_dofs=mpde.n_dofs,
+        **{k: f"{v:.15e}" for k, v in got.items()},
+        rel_err_vs_jax=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}),
+        fd=f"{fd:.9e}", adjoint=f"{ad:.9e}", fd_rel_err=f"{fd_err:.3e}",
+        mass_solve_iters=json.dumps(mass_iters),
+        mass_solve_launches=json.dumps(mass_l), mass_solve_s=f"{mass_s:.4f}",
+        first_call_s=f"{first_s:.3f}", warm_s=f"{warm_s:.4f}",
+        moved_call_s=f"{moved_s:.3f}", launches=json.dumps(launches),
+        peak_mem_gb=f"{peak_gb:.3f}", kernel_at_vf_mass=json.dumps(case),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if not finite or g_F.shape != F0.shape or g_th.shape != (nel,):
+        fail("pressure: non-finite or mis-shaped gradients")
+    for k, (want, bar) in PRESSURE_DIGITS.items():
+        if not errs[k] <= bar:
+            fail(f"pressure {k} {got[k]:.9e} vs the JAX package's "
+                 f"{want:.9e} (bar {bar})")
+    if not fd_err <= PRESSURE_FD_BAR:
+        fail(f"pressure FD {fd:.9e} vs adjoint {ad:.9e}: rel {fd_err:.3e}")
+    if not kerr <= FUSED_BAR["float64"]:
+        fail(f"pressure fused operator at the VF mass form: rel err "
+             f"{kerr:.3e}")
+    if min(launches["constrained_matvec_T"], launches["affine_combine"]) <= 0 \
+            or mass_l["constrained_matvec_T"] <= 0:
+        fail(f"pressure: a kernel of the path was never launched: "
+             f"{launches}, mass solve {mass_l}")
+    return launches, case
+
+
 def phase_scale(ck):
     """The north star's scale point on the card: LibraryBench at 512x128
     (988,806 dofs, 65,536 cells, a five-level MG), held against the
@@ -1419,9 +1872,13 @@ def main():
     k1 = phase_k1(ck)
     fused = phase_k1_fused(ck)
     k2 = phase_k2(ck)
-    by_path = {"slice": phase_slice(ck), "wing": phase_wing(ck),
-               "transient": phase_transient(ck), "opt": phase_opt(ck),
-               "modal": phase_modal(ck)}
+    by_path = {}
+    by_path["slice"], slice_iters = phase_slice(ck)
+    by_path.update(wing=phase_wing(ck), transient=phase_transient(ck),
+                   opt=phase_opt(ck), modal=phase_modal(ck),
+                   shape=phase_shape(ck, slice_iters),
+                   shape_opt=phase_shape_opt(ck))
+    by_path["pressure"], vf_mass_case = phase_pressure(ck)
     by_path["scale"], scale_cases = phase_scale(ck)
     at_scale = [_case_numbers(c) for c in scale_cases]
     launches = {k: sum(p[k] for p in by_path.values())
@@ -1440,7 +1897,8 @@ def main():
          "replaces": "femo_alpha_tpu/assembly/pallas_kernels.py:42",
          "launches": launches["constrained_matvec_T"],
          "launches_by_path": {k: p["constrained_matvec_T"] for k, p in by_path.items()},
-         **fused, "at_nc_65536": at_scale[0]},
+         **fused, "at_nc_65536": at_scale[0],
+         "at_vf_mass": _case_numbers(vf_mass_case)},
         {"name": "affine_combine", "route": "cuda",
          "source": "femo_alpha_tpu_torch/assembly/csrc/affine_combine.cu",
          "replaces": "femo_alpha_tpu/assembly/pallas_kernels.py:149",

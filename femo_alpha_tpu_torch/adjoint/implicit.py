@@ -15,11 +15,19 @@ Facet forms (penalty BCs) add their residual, and their element matrices
 enter the operator as one more block. For these linear problems the facet
 Jacobian depends on the geometry parameters only (uhat), so it is
 assembled once per uhat value and reused (`_prepare_facet_ops`).
+`extra_residual(u, params)` adds a load term that does not depend on u
+(the force vector of the force-to-pressure map): it enters the residual
+and its parameter gradients, not the operator.
 
 Preconditioners take part through a split protocol:
-    prepare(params) -> aux                     (e.g. affine bases)
+    prepare(params, grad_keys) -> aux          (e.g. affine bases)
     setup_state(u, params, ops_Ae, aux) -> state
     apply_state(state, v) -> M^{-1} v
+`solve` detaches the parameters before `prepare`; `grad_keys` names those
+that required grad (the counterpart of the JAX package's tracer test), so
+that a cached basis is not built for a geometry that is being
+differentiated: the element-matrix function and the preconditioner then
+assemble directly, once per solve.
 """
 
 from __future__ import annotations
@@ -44,8 +52,10 @@ class ImplicitPDE:
     decomposition, assembly/affine.py)."""
 
     def __init__(self, form: FemForm, free_mask, bc_vals, solver_opts=None,
-                 element_matrices_fn=None, facet_forms=()):
+                 element_matrices_fn=None, facet_forms=(),
+                 extra_residual=None):
         self.form = form
+        self.extra_residual = extra_residual
         self.n_dofs = form.space.n_dofs
         self.free_mask = free_mask
         self.bc_vals = bc_vals
@@ -68,14 +78,23 @@ class ImplicitPDE:
         r = assemble_residual(self.form, u, params)
         for ff in self.facet_forms:
             r = r + ff.assemble_residual(u, params)
+        if self.extra_residual is not None:
+            r = r + self.extra_residual(u, params)
         return constrain_residual(r, u, self.free_mask, self.bc_vals)
 
-    def _assemble_ops(self, u, params, emf_basis=None, facet_ops=None):
+    def _assemble_ops(self, u, params, emf_basis=None, facet_ops=None,
+                      direct=False):
         """The element blocks in the `_op_specs` layout, lane-major
         (nd, nd, nc): the cell operator, then the facet blocks (given, or
-        assembled here)."""
-        if self.element_matrices_fn is not None:
-            ops = [self.element_matrices_fn(u, params, basis=emf_basis)]
+        assembled here). direct: assemble the cell block directly when no
+        basis is given (what `_prepare_aux` asks for when a geometry
+        parameter requires grad), instead of preparing one here."""
+        fn = self.element_matrices_fn
+        if fn is not None and direct and emf_basis is None \
+                and hasattr(fn, "direct"):
+            ops = [fn.direct(u, params)]
+        elif fn is not None:
+            ops = [fn(u, params, basis=emf_basis)]
         else:
             Ae = element_matrices(self.form, u, params)
             ops = [Ae.permute(1, 2, 0).contiguous()]
@@ -111,17 +130,22 @@ class ImplicitPDE:
             self._fops_cache = (ck, fops)
         return self._fops_cache[1]
 
-    def _prepare_aux(self, params):
+    def _prepare_aux(self, params, grad_keys=frozenset()):
+        """(cell basis, preconditioner aux, facet blocks) for detached
+        params; grad_keys: the parameters that require grad. A basis of
+        None means a direct assembly of the cell block."""
         fn = self.element_matrices_fn
-        emb = fn.prepare(params) if hasattr(fn, "prepare") else None
-        pca = self._pc.prepare(params) if self._pc is not None else ()
+        emb = (fn.prepare(params, grad_keys) if hasattr(fn, "prepare")
+               else None)
+        pca = (self._pc.prepare(params, grad_keys) if self._pc is not None
+               else ())
         return emb, pca, self._prepare_facet_ops(params)
 
     def _linearize(self, u, params, aux):
         """The operator blocks and preconditioner state at u."""
         emf_basis, pc_aux, facet_ops = aux
         ops_Ae = self._assemble_ops(u, params, emf_basis=emf_basis,
-                                    facet_ops=facet_ops)
+                                    facet_ops=facet_ops, direct=True)
         M_state = (self._pc.setup_state(u, params, ops_Ae, pc_aux)
                    if self._pc is not None else None)
         return ops_Ae, M_state
@@ -170,9 +194,12 @@ class ImplicitPDE:
         if u0 is None:
             u0 = torch.zeros_like(self.free_mask)
         keys = tuple(params)
+        grad_keys = frozenset(
+            k for k, v in params.items()
+            if v.requires_grad and torch.is_grad_enabled())
         with torch.no_grad():
             aux = self._prepare_aux({k: v.detach() for k, v in
-                                     params.items()})
+                                     params.items()}, grad_keys)
         return _ImplicitSolve.apply(self, aux, keys, u0.detach(),
                                     *[params[k] for k in keys])
 

@@ -12,8 +12,13 @@ from .assemble import (
 )
 from .bc import DirichletBC, combine_bcs, constrain_matvec, lift_rhs
 from .cuda_kernels import affine_combine, cell_matvec_T, constrained_matvec_T
+from .geometry import cell_jacobian, det_2x2, det_metric, inv_2x2
 
 __all__ = [
+    "cell_jacobian",
+    "det_metric",
+    "inv_2x2",
+    "det_2x2",
     "FemForm",
     "assemble_residual",
     "assemble_scalar",

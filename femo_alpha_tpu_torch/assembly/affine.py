@@ -112,7 +112,13 @@ class CachedAffineAssembler:
     detected by content hash). Emits lane-major (nd, nd, nc) element
     matrices. `verify=True` checks the decomposition against one direct
     assembly when the basis is built. Parameters in `ignore_keys` do not
-    enter the Jacobian (pure load terms) and are zeroed in the probes."""
+    enter the Jacobian (pure load terms) and are zeroed in the probes.
+
+    When a parameter that enters the Jacobian, other than the design field,
+    requires grad (`grad_keys`: a shape study differentiates uhat), no
+    basis is built: every design there is a new geometry, and two probe
+    assemblies plus a verify would cost three assemblies where one direct
+    assembly does (`direct`)."""
 
     def __init__(self, form, key="thickness", powers=(1, 3),
                  probe_scale=None, chunk=8192, dtype=None, verify=True,
@@ -128,8 +134,13 @@ class CachedAffineAssembler:
         self._cache_key = None
         self._aff = None
 
-    def prepare(self, params):
-        """The affine basis for these parameters (built or reused)."""
+    def prepare(self, params, grad_keys=frozenset()):
+        """The affine basis for these parameters (built or reused), or None
+        when one of grad_keys enters the Jacobian besides the design field
+        (the caller then assembles directly)."""
+        if any(k != self.key and k not in self.ignore_keys
+               for k in grad_keys if k in params):
+            return None
         others = {k: (torch.zeros_like(v) if k in self.ignore_keys
                       else v.detach())
                   for k, v in params.items() if k != self.key}
@@ -164,6 +175,16 @@ class CachedAffineAssembler:
         explicit one)."""
         B = self._aff.basis if basis is None else basis
         return _vjp_theta(B, self.powers, theta, u, lam, space)
+
+    def direct(self, u, params):
+        """One direct assembly, lane-major (nd, nd, nc); u None means the
+        zero state (the Jacobian of a linear form does not depend on it)."""
+        th = params[self.key]
+        if u is None:
+            u = torch.zeros(self.form.space.n_dofs, dtype=th.dtype,
+                            device=th.device)
+        Ae = element_matrices(self.form, u, params, chunk=self.chunk)
+        return Ae.permute(1, 2, 0).contiguous()
 
     def __call__(self, u, params, basis=None):
         if basis is None:

@@ -195,6 +195,48 @@ def wing_inputs(mesh, device, amplitude, E, nu, rho):
             torch.full((nel,), nu, **kw), torch.full((nel,), rho, **kw))
 
 
+def planform_shape(coords, length=10.0, width=2.0, amplitude=0.1):
+    """A smooth in-plane planform change of the cantilever plate, zero at
+    the root and the tip: dy = amplitude s (1 - s) (2 y / W - 1), s = x / L
+    (max |dy| = amplitude / 4; at 128x32 it changes no cell Jacobian by
+    more than 2.5 %). numpy (n_nodes,)."""
+    s = coords[:, 0] / length
+    return amplitude * s * (1.0 - s) * (2.0 * coords[:, 1] / width - 1.0)
+
+
+def planform_direction(coords, length=10.0, width=2.0):
+    """A smooth unit in-plane (y) direction for shape finite differences,
+    d = s cos(pi y / W) normalised, zero at the root. numpy (n_nodes,)."""
+    d = coords[:, 0] / length * np.cos(np.pi * coords[:, 1] / width)
+    return d / np.linalg.norm(d)
+
+
+def wing_nodal_forces(mesh, amplitude):
+    """The elliptic lift pressure of `wing_inputs` as nodal forces: at each
+    node the pressure times its lumped area (a quarter of each adjacent
+    quad's area). numpy (n_nodes, 3)."""
+    x = np.asarray(mesh.coords)[np.asarray(mesh.conn)]  # (nc, 4, 3)
+    area = 0.5 * np.linalg.norm(np.cross(x[:, 2] - x[:, 0],
+                                         x[:, 3] - x[:, 1]), axis=1)
+    node_area = np.zeros(mesh.n_nodes)
+    np.add.at(node_area, np.asarray(mesh.conn).ravel(),
+              np.repeat(area / 4.0, 4))
+    span = float(np.max(mesh.coords[:, 1]))
+    eta = np.clip(np.asarray(mesh.coords[:, 1]) / span, 0.0, 1.0)
+    forces = np.zeros((mesh.n_nodes, 3))
+    forces[:, 2] = amplitude * np.sqrt(1.0 - eta ** 2) * node_area
+    return forces
+
+
+def wing_sweep(mesh, amplitude=0.02):
+    """A small in-plane mesh motion of a wing, zero at the root: a sweep
+    change dx = amplitude (y / span)^2. numpy (n_nodes, 3)."""
+    span = float(np.max(mesh.coords[:, 1]))
+    disp = np.zeros((mesh.n_nodes, 3))
+    disp[:, 0] = amplitude * (np.asarray(mesh.coords[:, 1]) / span) ** 2
+    return disp
+
+
 class WingBench:
     """tools/wing_bench.py's workload: a penalty-BC wing shell
     (createWingShellMesh, root clamped at y = 0), an elliptic 2,000 Pa lift,

@@ -99,8 +99,13 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
                                       chunk=asm_chunk, verify=False)
 
         def make_Ae(p, asm_k=asm_k):
+            # without a basis (a geometry parameter requires grad, see
+            # ShellMGPrecond.prepare) the level is assembled directly
             q = {k: v for k, v in p.items() if k != "_affine_basis"}
-            return asm_k(None, q, basis=p.get("_affine_basis"))
+            basis = p.get("_affine_basis")
+            if basis is None:
+                return asm_k.direct(None, q)
+            return asm_k(None, q, basis=basis)
 
         lev = {"space": pde_k.W, "free": free_k, "affine_asm": asm_k,
                "make_Ae": make_Ae}
@@ -135,14 +140,22 @@ class ShellMGPrecond:
     def __init__(self, mg: GeometricMG):
         self.mg = mg
 
-    def prepare(self, params):
+    def prepare(self, params, grad_keys=frozenset()):
         """Per-level affine bases. Level 0's entry is None: setup_state
         always hands the hierarchy the fine operator itself (Ae0), so the
-        fine level never re-assembles from a basis of its own."""
+        fine level never re-assembles from a basis of its own. () when a
+        level has no basis (a geometry parameter in grad_keys): every
+        coarse level is then assembled directly."""
         p = {k: params[k] for k in self._KEYS if k in params}
         bases = []
         for k, lev in enumerate(self.mg.levels):
-            bases.append(None if k == 0 else lev["affine_asm"].prepare(p))
+            if k > 0:
+                b = lev["affine_asm"].prepare(p, grad_keys)
+                if b is None:
+                    return ()
+                bases.append(b)
+            else:
+                bases.append(None)
             if "coarsen" in lev:
                 p = lev["coarsen"](p)
         return tuple(bases)

@@ -26,21 +26,30 @@ Every operator application goes through the fused constrained operator
 block) and every per-design re-assembly of the cell operator through the
 affine basis (K2).
 
+Shape and load inputs: `node_disp` (n_nodes, 3), the mesh-motion field
+uhat in the caller's node order, enters every form through the
+deformed-configuration pullbacks J(uhat) and F(uhat); the outputs are
+differentiable in it (shape gradients, no remeshing). While it requires
+grad, the fine operator and every MG level are assembled directly once per
+call instead of from a cached affine basis (assembly/affine.py).
+`is_pressure=False` takes `force_vector` as nodal forces and maps them to
+the pressure field by a differentiable solve with the VF mass matrix
+(RMShellPDE.make_force_to_pressure_solver, built once per model).
+
 Modal analysis (`evaluate_modal`, `modal_eigenvalues`): the smallest
 eigenpairs of K phi = omega^2 M phi by a dense reduced eigh (n_dofs <=
 6000) or by LOBPCG over the solve path's operator and preconditioner, with
 eigenvalues differentiable in thickness, E, nu and density through the
-Rayleigh quotient at the converged modes.
+Rayleigh quotient at the converged modes; `node_disp` there is a fixed
+geometry.
 
 Not ported yet (ROADMAP.md, Queue 1), raising NotImplementedError before
 the device is looked at: composite laminates, nodal (CG1) material fields,
 custom solver_opts, other element types and dtypes, `record=True` (the
-XDMF recorder); at evaluate and evaluate_modal: nodal forces
-(is_pressure=False) and the mesh-motion input node_disp. Past the
-band memory guard the reference falls back to an aggregation AMG, which
-is not ported either: that raises too. The model runs on the CUDA card
-unless `device` names another; without a card and without `device` it
-raises (pass device="cpu" for the CPU).
+XDMF recorder). Past the band memory guard the reference falls back to an
+aggregation AMG, which is not ported either: that raises too. The model
+runs on the CUDA card unless `device` names another; without a card and
+without `device` it raises (pass device="cpu" for the CPU).
 """
 
 from __future__ import annotations
@@ -141,6 +150,7 @@ class RMShellModel:
         self.association_table = {}
         self._modal_m = None           # see _modal_mass
         self._modal_modes_cache = {}   # design point -> modes
+        self._force_to_pressure = None  # see evaluate(is_pressure=False)
         if mesh_tags is not None:
             self.set_up_subdomains(mesh_tags)
         self.set_up_fea()
@@ -271,11 +281,21 @@ class RMShellModel:
         return v[torch.as_tensor(np.asarray(idx, dtype=np.int64),
                                  device=self.device)].reshape(-1)
 
-    def fe_inputs(self, force_vector, thickness, E, nu, density=None):
+    def _uhat(self, node_disp):
+        """node_disp ((n_nodes, 3), or flat node-major) in the caller's
+        node order -> uhat (3 n_nodes,) in the FE order; zero for None."""
+        if node_disp is None:
+            return torch.zeros(3 * self.nn, dtype=self.dtype,
+                               device=self.device)
+        return self._reorder(node_disp, self.mesh.input_global_indices)
+
+    def fe_inputs(self, force_vector, thickness, E, nu, density=None,
+                  node_disp=None):
         """The model's inputs in the FE order, as evaluate hands them to
-        the FEA: thickness, E, nu, F_solid, uhat (zero) and, when given,
-        density. Without density the dict is the displacement state's
-        parameters (what its ImplicitPDE's residual takes)."""
+        the FEA: thickness, E, nu, F_solid, uhat (node_disp, zero without
+        it) and, when given, density. Without density the dict is the
+        displacement state's parameters (what its ImplicitPDE's residual
+        takes)."""
         igi = self.mesh.input_global_indices
         oci = self.mesh.original_cell_index
         mat_idx = oci if oci is not None else igi
@@ -286,25 +306,34 @@ class RMShellModel:
             "E": self._reorder(E, mat_idx),
             "nu": self._reorder(nu, mat_idx),
             "F_solid": self._reorder(force_vector, f_idx),
-            "uhat": torch.zeros(3 * self.nn, dtype=self.dtype,
-                                device=self.device),
+            "uhat": self._uhat(node_disp),
         }
         if density is not None:
             inputs["density"] = self._reorder(density, mat_idx)
         return inputs
 
+    def force_to_pressure(self, F):
+        """Nodal forces in the FE order -> the pressure field: the solve of
+        (VF mass matrix) p = F, differentiable in F (built at first use)."""
+        if self._force_to_pressure is None:
+            self._force_to_pressure = \
+                self.shell_pde.make_force_to_pressure_solver()
+        return self._force_to_pressure(F)
+
     def evaluate(self, force_vector, thickness, E, nu, density,
                  node_disp=None, is_pressure=True):
-        """Inputs as tensors or arrays in the CALLER's node/cell order.
-        Returns a VariableGroup of tensors, differentiable end to end; the
-        outputs are computed on first access."""
-        if not is_pressure:
-            raise _not_ported("is_pressure=False (force-to-pressure map)")
-        if node_disp is not None:
-            raise _not_ported("node_disp (mesh-motion shape input)")
+        """Inputs as tensors or arrays in the CALLER's node/cell order;
+        node_disp (n_nodes, 3) moves the mesh (None: no motion);
+        is_pressure=False reads force_vector as nodal forces. Returns a
+        VariableGroup of tensors, differentiable end to end; the outputs
+        are computed on first access."""
         pde = self.shell_pde
-        out = self.model.evaluate(
-            self.fe_inputs(force_vector, thickness, E, nu, density))
+        inputs = self.fe_inputs(force_vector, thickness, E, nu, density,
+                                node_disp)
+        if not is_pressure:
+            log("Converting forces to pressures ...")
+            inputs["F_solid"] = self.force_to_pressure(inputs["F_solid"])
+        out = self.model.evaluate(inputs)
         out.add_lazy("disp_extracted",
                      lambda: DisplacementExtractionModel(pde).evaluate(
                          out.disp_solid))
@@ -339,16 +368,16 @@ class RMShellModel:
         stationarity makes that the exact eigenvalue gradient); `modes`
         (n_dofs, k; M-orthonormal), `modes_extracted` (k, n_nodes, 3),
         `res_norms`, `iterations`, and `eig_fn(thickness, E, nu, density)
-        -> (k,)`, the Rayleigh-quotient map at these modes."""
-        if node_disp is not None:
-            raise _not_ported("node_disp (mesh-motion shape input)")
+        -> (k,)`, the Rayleigh-quotient map at these modes. node_disp
+        (n_nodes, 3) moves the mesh as in evaluate, as a fixed geometry:
+        the eigenvalues are differentiable in the four inputs only."""
         k = int(n_modes)
         X, res, iters = self._modal_modes(thickness, E, nu, density, k, tol,
-                                          maxiter, seed, solver)
+                                          maxiter, seed, solver, node_disp)
         X = X.detach()
 
         def eig_fn(th, E_, nu_, rho_):
-            return self._modal_rayleigh(X, th, E_, nu_, rho_)
+            return self._modal_rayleigh(X, th, E_, nu_, rho_, node_disp)
 
         lam = eig_fn(thickness, E, nu, density)
         freqs = torch.sqrt(torch.clamp(lam, min=0.0)) / (2.0 * np.pi)
@@ -358,18 +387,19 @@ class RMShellModel:
                              modes_extracted=modes_x, res_norms=res,
                              iterations=iters, eig_fn=eig_fn)
 
-    def _modal_fe_params(self):
+    def _modal_fe_params(self, node_disp=None):
         """fe_params(th, E, nu, rho) -> (residual params, mass params) in
         FE order, with zero load (the residual at u is then exactly
-        K(p) u); differentiable in the four inputs."""
+        K(p) u) and the geometry of node_disp (detached); differentiable
+        in the four inputs."""
         pde = self.shell_pde
         igi = self.mesh.input_global_indices
         oci = self.mesh.original_cell_index
         mat_idx = oci if oci is not None else igi
         zeros = dict(dtype=self.dtype, device=self.device)
+        uhat = self._uhat(node_disp).detach()
 
         def fe_params(th, E_, nu_, rho_):
-            uhat = torch.zeros(pde.VU.n_dofs, **zeros)
             p = {"thickness": self._reorder(th, mat_idx),
                  "E": self._reorder(E_, mat_idx),
                  "nu": self._reorder(nu_, mat_idx),
@@ -391,7 +421,7 @@ class RMShellModel:
         return self._modal_m
 
     def _modal_modes(self, thickness, E, nu, density, k, tol, maxiter, seed,
-                     solver):
+                     solver, node_disp=None):
         """The eigensolve at fixed inputs: (modes X (n, k), res_norms,
         iterations), no autograd graph."""
         pde = self.shell_pde
@@ -399,7 +429,8 @@ class RMShellModel:
         W = pde.W
         n = W.n_dofs
         with torch.no_grad():
-            p, mp = self._modal_fe_params()(thickness, E, nu, density)
+            p, mp = self._modal_fe_params(node_disp)(thickness, E, nu,
+                                                     density)
             p = {key: v.detach() for key, v in p.items()}
             mp = {key: v.detach() for key, v in mp.items()}
             fm = ipde.free_mask
@@ -408,7 +439,9 @@ class RMShellModel:
                 raise ValueError(f"n_modes={k} exceeds {free_idx.numel()} "
                                  "free dofs")
             _, m_asm = self._modal_mass()
-            Me = m_asm(None, mp)  # lane-major (nd, nd, nc): one K2, K = 1
+            # lane-major (nd, nd, nc): one K2, K = 1, on the basis of this
+            # geometry
+            Me = m_asm(None, mp)
             u0 = torch.zeros(n, dtype=self.dtype, device=self.device)
             log(f"Modal analysis: {k} modes, {n} dofs ...")
             use_dense = solver == "dense" or (
@@ -456,14 +489,15 @@ class RMShellModel:
                     f"{iters} iterations (tol {tol})")
             return X, res, iters
 
-    def _modal_rayleigh(self, X, thickness, E, nu, density):
+    def _modal_rayleigh(self, X, thickness, E, nu, density,
+                        node_disp=None):
         """Rayleigh quotients lam_i = phi_i^T K(p) phi_i / phi_i^T M(p)
         phi_i at FIXED modes X, differentiable in the four inputs: the
         numerator by one residual assembly per mode (zero load, facet
         forms included), the denominator as twice the inertia energy."""
         ipde = self.fea.states["disp_solid"].pde
         mform, _ = self._modal_mass()
-        p, mp = self._modal_fe_params()(thickness, E, nu, density)
+        p, mp = self._modal_fe_params(node_disp)(thickness, E, nu, density)
         lams = []
         for i in range(X.shape[1]):
             phi = X[:, i]
@@ -481,20 +515,22 @@ class RMShellModel:
         `opts` passed on) gives the modes, and the returned eigenvalues are
         the Rayleigh quotients at them, so `.backward()` gives the exact
         eigenvalue gradient. The modes are memoized on the design point
-        (the last 8): SLSQP asks for the same x several times."""
-        if node_disp is not None:
-            raise _not_ported("node_disp (mesh-motion shape input)")
+        and node_disp (the last 8): SLSQP asks for the same x several
+        times."""
         k = int(n_modes)
         vals = [self._tensor(v) for v in (thickness, E, nu, density)]
+        nd = None if node_disp is None else self._tensor(node_disp).detach()
         cache = self._modal_modes_cache
-        key = ((k, tuple(sorted(opts.items())))
+        key = ((k, tuple(sorted(opts.items())),
+                None if nd is None else nd.cpu().numpy().tobytes())
                + tuple(v.detach().cpu().numpy().tobytes() for v in vals))
         X = cache.get(key)
         if X is None:
             o = dict(tol=1e-8, maxiter=200, seed=0, solver="auto")
             o.update(opts)
-            X = self._modal_modes(*[v.detach() for v in vals], k, **o)[0]
+            X = self._modal_modes(*[v.detach() for v in vals], k, **o,
+                                  node_disp=nd)[0]
             if len(cache) >= 8:
                 cache.pop(next(iter(cache)))
             cache[key] = X
-        return self._modal_rayleigh(X, *vals)
+        return self._modal_rayleigh(X, *vals, node_disp=nd)

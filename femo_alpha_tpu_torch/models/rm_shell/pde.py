@@ -18,9 +18,12 @@ space, MID reference plane, isotropic material):
 - the transient shell's forms: inertia 0.5 rho h (|u|^2 + h_m^2 |theta|^2)
   and the self-weight load
 
-The force-to-pressure map, the BOT reference plane, nodal (CG1) material
-fields with their H1 regularization and composite laminates are not ported
-yet (ROADMAP.md, Queue 1).
+- the force-to-pressure map: a differentiable solve of (VF mass matrix)
+  p = F (`make_force_to_pressure_solver`)
+
+The BOT reference plane, nodal (CG1) material fields with their H1
+regularization and composite laminates are not ported yet (ROADMAP.md,
+Queue 1).
 """
 
 from __future__ import annotations
@@ -503,6 +506,37 @@ class RMShellPDE:
             return torch.cholesky_solve(b[..., None], L)[..., 0].reshape(-1)
 
         return project, V_out
+
+    def make_force_to_pressure_solver(self):
+        """solve_pressure(F) -> p: the differentiable solve of (VF mass
+        matrix) p = F, for F in the FE order. Unpreconditioned CG at tol
+        1e-12, as the JAX package configures it, whose every application is
+        the fused operator on the VF mass form's element matrices; its
+        backward is one more solve. `solve_pressure.pde` is the
+        ImplicitPDE (its last_info holds the CG iterations)."""
+        from ...adjoint.implicit import ImplicitPDE
+
+        VF = self.VF
+        R = self._rules["inplane"]
+
+        def mass_energy(f_cell, x_cell, p):
+            geo = surface_geometry(x_cell, R["geom_dphi"])
+            fq = _interp_vec(VF, R["f_phi"], f_cell)
+            return torch.sum(
+                0.5 * torch.sum(fq * fq, dim=1) * R["w"] * geo["dA"])
+
+        form = FemForm(VF, mass_energy, kind="energy", param_specs={})
+        t64 = dict(dtype=torch.float64, device=self.device)
+        pde = ImplicitPDE(
+            form, torch.ones(VF.n_dofs, **t64), torch.zeros(VF.n_dofs, **t64),
+            solver_opts={"method": "cg", "tol": 1e-12},
+            extra_residual=lambda u, p: -p["F_vec"])
+
+        def solve_pressure(F_vec):
+            return pde.solve({"F_vec": F_vec})
+
+        solve_pressure.pde = pde
+        return solve_pressure
 
     # -------------------------------------------------------- interop maps
     def extract_nodal_disp(self, w):

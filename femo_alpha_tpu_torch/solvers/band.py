@@ -329,7 +329,7 @@ class BandPrecond:
     def __init__(self, space, dofmaps, free_mask=None):
         self.band = BandCholPrecond(space, dofmaps, free=free_mask)
 
-    def prepare(self, params):
+    def prepare(self, params, grad_keys=frozenset()):
         return ()
 
     def setup_state(self, u, params, ops_Ae, aux):

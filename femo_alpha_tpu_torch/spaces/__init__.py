@@ -1,5 +1,5 @@
 """Function spaces (port of femo_alpha_tpu/spaces)."""
 
-from .space import FunctionSpace, MixedSpace, locate_dofs_geometric
+from .space import Function, FunctionSpace, MixedSpace, locate_dofs_geometric
 
-__all__ = ["FunctionSpace", "MixedSpace", "locate_dofs_geometric"]
+__all__ = ["Function", "FunctionSpace", "MixedSpace", "locate_dofs_geometric"]

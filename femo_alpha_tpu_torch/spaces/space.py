@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device, tensor_on
 from ..elements import reference_element
 from ..mesh import Mesh
 from .fixed_order import fixed_order_scatter, sum_plan
@@ -245,6 +246,9 @@ class FunctionSpace(_LaneTables):
         return (f"FunctionSpace({self.element.name}, vs={self.value_size}, "
                 f"ndofs={self.n_dofs})")
 
+    def function(self, array=None, name=None, device=None):
+        return Function(self, array=array, name=name, device=device)
+
 
 class MixedSpace(_LaneTables):
     """Concatenation of function spaces (e.g. RM shell: CG2 vec3 x CG1 vec3).
@@ -290,6 +294,33 @@ class MixedSpace(_LaneTables):
         """(nd_local, nc) -> (n_dofs,) lane-major scatter-add."""
         return torch.cat([s.scatter_add_T(cell_vals_T[sl]) for s, sl in
                           zip(self.subspaces, self.local_slices)])
+
+
+class Function:
+    """A coefficient vector in a space: `.x` is an f64 tensor of n_dofs on
+    `device` (the CUDA card unless named)."""
+
+    def __init__(self, space, array=None, name=None, device=None):
+        self.space = space
+        self.name = name
+        self.device = resolve_device(device)
+        if array is None:
+            self.x = torch.zeros(space.n_dofs, dtype=torch.float64,
+                                 device=self.device)
+        else:
+            self.x = tensor_on(array, self.device, "Function").reshape(
+                space.n_dofs)
+
+    def interpolate(self, fn):
+        """Interpolate a callable fn(coords (n, gdim)) -> (n,) or (n, vs)
+        at the dof coordinates (Lagrange spaces only)."""
+        vals = np.asarray(fn(self.space.dof_coords), dtype=np.float64)
+        self.x = torch.as_tensor(vals.reshape(-1), device=self.device)
+        return self
+
+    def copy(self):
+        return Function(self.space, array=self.x.clone(), name=self.name,
+                        device=self.device)
 
 
 def locate_dofs_geometric(space: FunctionSpace, predicate, component=None):

@@ -11,8 +11,9 @@ segments recomputed bit for bit and its V-cycle setup repeated bit for
 bit; modal analysis (LOBPCG + MG) on the card against the CPU, and
 OptimizationProblem and the csdl operations on the card by default; the
 PAV wing's evaluate and stress backward bit for bit from one fresh model
-to the next, and the indexed gathers' backward bit for bit. They skip
-without a card. The
+to the next, and the indexed gathers' backward bit for bit; a moved
+plate's evaluate and shape backward on the card against the CPU and bit
+for bit. They skip without a card. The
 file imports no jax, so on a machine without the JAX package it runs on
 its own:
 
@@ -522,6 +523,53 @@ def test_wing_evaluate_and_stress_backward_are_bitwise_repeatable(cuda):
     a, b = _pav_wing_run(), _pav_wing_run()
     differ = [k for k in a if not torch.equal(a[k], b[k])]
     assert not differ, differ
+
+
+def _moved_plate_run(device):
+    """A fresh 64x16 plate model (MG path) on `device`, one evaluate with
+    node_disp = benchmarks.planform_shape in y, node_disp and thickness
+    requiring grad (the direct assembly path), and the compliance
+    backward: {name: tensor on the CPU}."""
+    from femo_alpha_tpu_torch.benchmarks import planform_shape
+
+    mesh = _rect(64, 16)
+    model = RMShellModel(mesh, shell_bc_func=_clamped,
+                         element_wise_material=True, PENALTY_BC=False,
+                         device=device)
+    nel, nn = mesh.n_cells, mesh.n_nodes
+    kw = dict(dtype=torch.float64, device=device)
+    f = torch.zeros(3 * nn, **kw)
+    f[2::3] = 2.0
+    nd = torch.zeros((nn, 3), **kw)
+    nd[:, 1] = torch.as_tensor(planform_shape(mesh.coords), **kw)
+    nd.requires_grad_(True)
+    th = torch.full((nel,), 0.2, **kw).requires_grad_(True)
+    out = model.evaluate(f, th, torch.full((nel,), 4.32e8, **kw),
+                         torch.zeros(nel, **kw), torch.full((nel,), 100.0, **kw),
+                         node_disp=nd)
+    out.compliance.backward()
+    return {"disp_solid": out.disp_solid.detach().cpu(),
+            "compliance": out.compliance.detach().cpu().reshape(1),
+            "node_disp_grad": nd.grad.cpu(), "thickness_grad": th.grad.cpu()}
+
+
+def test_moved_plate_on_card_matches_cpu_and_repeats_bitwise(cuda):
+    """A moved plate's evaluate + compliance backward in node_disp and
+    thickness: two fresh models on the card give the same bits, and the
+    card's values equal the CPU port's: the compliance to 1e-10; the
+    state, which each device's MG-PCG stops at a relative residual of
+    1e-11 by its own rounding, to 1e-9 (3.9e-10 measured on an H100), and
+    the gradients, one adjoint solve further, to 1e-8."""
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs a Hopper card (sm_90)")
+    a, b = _moved_plate_run("cuda"), _moved_plate_run("cuda")
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    assert not differ, differ
+    c = _moved_plate_run("cpu")
+    bars = {"compliance": 1e-10, "disp_solid": 1e-9, "node_disp_grad": 1e-8,
+            "thickness_grad": 1e-8}
+    errs = {k: _rel(a[k], c[k]) for k in a}
+    assert all(errs[k] <= bars[k] for k in a), errs
 
 
 def test_indexed_gather_backward_is_bitwise_repeatable(cuda):

@@ -97,7 +97,8 @@ def test_kernel_wrappers_refuse_bad_input(case):
 def test_unported_configurations_raise(what, monkeypatch):
     """What each path still lacks: past the band memory guard (penalty BCs,
     or strong BCs on an unstructured mesh) the reference's AMG fallback;
-    on the dense path the force-to-pressure map; and the options below."""
+    on the dense path a solver of the caller's choice (solver_opts); and
+    the options below."""
     from femo_alpha_tpu_torch.mesh import createRectangleMesh
     from femo_alpha_tpu_torch.models import RMShellModel
 
@@ -110,16 +111,12 @@ def test_unported_configurations_raise(what, monkeypatch):
               PENALTY_BC=what == "penalty", device="cpu")
     if what == "composite":
         kw["composite_clt"] = object()
+    if what == "dense":
+        kw["solver_opts"] = {"method": "gmres", "pc": "jacobi"}
     if what in ("penalty", "unstructured"):
         monkeypatch.setenv("FEMO_BAND_MEM_GB", "0.001")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model = RMShellModel(mesh, **kw)
-        if what == "dense":
-            n = mesh.n_nodes
-            model.evaluate(np.ones(3 * n), np.full(mesh.n_cells, 0.1),
-                           np.full(mesh.n_cells, 1e9),
-                           np.full(mesh.n_cells, 0.3),
-                           np.ones(mesh.n_cells), is_pressure=False)
+        RMShellModel(mesh, **kw)
 
 
 def test_platesim_without_a_card_raises(monkeypatch):

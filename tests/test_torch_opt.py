@@ -326,8 +326,9 @@ def test_checkpoint_round_trip(tmp_path):
 
 def test_record_option_and_unported_modal_inputs():
     """record=False (what every optimization example passes) is accepted;
-    record=True (the XDMF recorder) and the mesh-motion input of the modal
-    path raise NotImplementedError naming ROADMAP.md."""
+    record=True (the XDMF recorder) raises NotImplementedError naming
+    ROADMAP.md. The mesh-motion input of the modal path, once unported,
+    is accepted: a zero node_disp gives the eigenvalues of no motion."""
     mesh = createRectangleMesh(4, 2, (0, 0), (2.0, 1.0), "quad", gdim=3)
     kw = dict(shell_bc_func=lambda x: x[:, 0] < 1e-12,
               element_wise_material=True, PENALTY_BC=False, device="cpu")
@@ -338,7 +339,9 @@ def test_record_option_and_unported_modal_inputs():
     nel = mesh.n_cells
     args = (np.full(nel, 0.1), np.full(nel, 1e9), np.zeros(nel),
             np.ones(nel))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.evaluate_modal(*args, node_disp=np.zeros((mesh.n_nodes, 3)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.modal_eigenvalues(*args, node_disp=np.zeros((mesh.n_nodes, 3)))
+    zero = np.zeros((mesh.n_nodes, 3))
+    lam = model.evaluate_modal(*args, n_modes=2).eigenvalues.detach()
+    assert torch.equal(model.evaluate_modal(
+        *args, n_modes=2, node_disp=zero).eigenvalues.detach(), lam)
+    assert torch.equal(model.modal_eigenvalues(
+        *args, n_modes=2, node_disp=zero).detach(), lam)
