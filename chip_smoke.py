@@ -61,10 +61,22 @@ build, the cached call); the shape study of
 examples/advanced_examples/shape_opt/ex_plate_shape_opt.py at its 32x8
 (the dense path, which applies neither kernel) for SHAPE_MAXITER SLSQP
 iterations against the JAX history and nit / nfev / njev; and the PAV
-wing under nodal forces (is_pressure=False: the force-to-pressure CG
-over the fused operator on the VF mass form), its stress gradient in
-thickness and forces against the JAX digits and a central difference,
-and once moved in-plane. Last, the scale point: LibraryBench
+wing under nodal forces (is_pressure=False: the force-to-pressure
+Jacobi-PCG over the fused operator on the VF mass form), its stress
+gradient in thickness and forces against the JAX digits and a central
+difference, and once moved in-plane. Then the generic FEA library:
+PoissonModel P1 at the scale point's size (1024x1024 triangles,
+1,050,625 dofs, nd 3) through Jacobi-CG, evaluate + compliance backward,
+against a host SuperLU solve, the JAX digits and a central difference,
+with Jacobi-GMRES(50) against Jacobi-CG at 256x256; NonlinearPoissonModel
+at 512x512 (8 fixed Newton steps, the checked Newton's count against the
+JAX run's, a central difference); ElasticityModel Q2 (nd 18) at 320x32
+against Euler-Bernoulli, SuperLU, the JAX digits and a central
+difference; the beam study of examples/basic_examples/beam_thickness_opt
+(dense path, no kernel) to the OpenMDAO golden; and the fused operator at
+Poisson's and elasticity's shapes and on a seeded non-symmetric operator
+and its transpose, each bit for bit across two applications. Last, the
+scale point: LibraryBench
 at 512x128 (988,806 dofs, five MG levels), checked by bench.py's
 quality gate, against a direct solve of the same assembled system on the
 card (band Cholesky + refinement) and, within that direct solve's own
@@ -185,6 +197,52 @@ PRESSURE_DIGITS = {"aggregated_stress": (4.307757920597484e+08, 1e-8),
                    "moved_aggregated_stress": (4.308402191909338e+08, 1e-8),
                    "moved_compliance": (1.671644644135762e+01, 1e-8)}
 PRESSURE_FD_BAR = 1e-5
+# the generic FEA library: the JAX package's models on the CPU, f64, each
+# linear solve its LinearSolver's default point-Jacobi CG from zero
+# (tools/generic_reference_digits.py). Poisson: P1 on the unit square,
+# 1024x1024 triangles (the size of the scale point), kappa DG0
+# 1 + 0.5 U[0,1) from default_rng(0), f = 2 pi^2 sin(pi x) sin(pi y) at
+# the dofs; the JAX state lies 3.6e-14 from a host SuperLU solve of its own
+# system. The port is held to a SuperLU solve of its own assembled system
+# and to the JAX digits at 1e-10: eps x cond(A) (~2e-16 x 4e5) bounds the
+# distance of direct solves of two assemblies that differ in rounding.
+POISSON_N = 1024
+POISSON_DIGITS = {"compliance": 4.153282971056369e+06,
+                  "mms_max_err": 1.973777061372222e-01,
+                  "cg_iters": 4125, "nodal_err_vs_direct": 3.632884206494587e-14}
+POISSON_BAR = 1e-10
+POISSON_GMRES_N = 256       # Jacobi-GMRES(50) against Jacobi-CG
+POISSON_GMRES_BAR = 1e-9
+# NonlinearPoissonModel P1, 512x512 triangles (cut from 1024 so the phase
+# stays near 30 s), newton_iters=8, kappa and f of
+# tests/test_nonlinear.py::_params (scale 40, default_rng(3)): the JAX
+# solve_checked's Newton iterations, the fixed-trip compliance, and the
+# fixed-trip state's distance from the checked one (JAX: 1.5e-16;
+# tests/test_nonlinear.py's bar is 1e-10, this phase's 1e-12)
+NONLINEAR_N = 512
+NONLINEAR_DIGITS = {"compliance": 1.911157202133127e+06, "newton_iters": 4,
+                    "fixed_vs_checked": 1.494703220229231e-16}
+NONLINEAR_BAR = 1e-9
+NONLINEAR_FIXED_BAR = 1e-12
+# ElasticityModel Q2 on createRectangleMesh(320, 32, (0, 0), (10, 1)),
+# E = 1e6, nu = 0, t = 1, f_y = -1 at the vertices (as
+# tests/test_models_basic.py's cantilever): the JAX state lies 1.4e-9 from
+# a host SuperLU solve of its own system after 7,519 Jacobi-CG iterations
+ELASTICITY_MESH = (320, 32)
+ELASTICITY_DIGITS = {"compliance": 6.445056068661040e+01, "volume": 10.0,
+                     "tip": 1.511967202475486e-02, "cg_iters": 7519,
+                     "nodal_err_vs_direct": 1.351621375895779e-09}
+ELASTICITY_BAR = 1e-8
+EB_BAR = 0.1                # tip vs Euler-Bernoulli w L^4 / (8 E I)
+GENERIC_FD_BAR = 1e-5
+# examples/basic_examples/beam_thickness_opt at nel = 50: the OpenMDAO
+# golden optimum (tests/test_beam.py, bar 1e-6) and the JAX run's SLSQP
+# counts, scipy 1.17.0 (printed beside the port's: the trajectory's tail
+# is not reproducible across packages, see the phase)
+BEAM_GOLDEN = 23762.153677443166
+BEAM_BAR = 1e-6
+BEAM_DIGITS = {"fun": 2.376215367685511e+04, "nit": 109, "nfev": 384,
+               "njev": 109}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3, and the rates outside the
 # tensor cores, which none of these kernels use
@@ -1727,6 +1785,7 @@ def phase_pressure(ck):
         **{k: f"{v:.15e}" for k, v in got.items()},
         rel_err_vs_jax=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}),
         fd=f"{fd:.9e}", adjoint=f"{ad:.9e}", fd_rel_err=f"{fd_err:.3e}",
+        mass_solve_pc="jacobi",
         mass_solve_iters=json.dumps(mass_iters),
         mass_solve_launches=json.dumps(mass_l), mass_solve_s=f"{mass_s:.4f}",
         first_call_s=f"{first_s:.3f}", warm_s=f"{warm_s:.4f}",
@@ -1750,6 +1809,452 @@ def phase_pressure(ck):
              f"{launches}, mass solve {mass_l}")
     return launches, case
 
+
+def fused_case_bits(ck, label, Ae, spec, free, x):
+    """fused_case, and two applications of the operator on x that must give
+    the same bits. Returns (error, case string)."""
+    import torch
+
+    op = ck.constrained_matvec_T(Ae, free, *spec.lane_tables(Ae.device))
+    same = torch.equal(op(x), op(x))
+    err, case = fused_case(ck, label, Ae, spec, free, x)
+    if not same:
+        fail(f"{label}: two applications of the fused operator on the same "
+             f"input differ")
+    if not err <= FUSED_BAR["float64"]:
+        fail(f"{label}: rel err {err:.3e} vs the twin > "
+             f"{FUSED_BAR['float64']:.0e}")
+    return err, case + ",bitwise_repeat=1"
+
+
+def _host_direct(pde, params, u, permc="MMD_AT_PLUS_A"):
+    """Nodal distance of u from a host SuperLU solve of the same assembled
+    constrained system (utils/quality.py::sparse_operator) and its
+    seconds."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+
+    from femo_alpha_tpu_torch.utils.quality import sparse_operator
+
+    t0 = time.perf_counter()
+    B, b = sparse_operator(pde, params)
+    ud = spla.splu(B, permc_spec=permc).solve(b)
+    u = u.detach().cpu().numpy()
+    return (float(np.linalg.norm(u - ud) / np.linalg.norm(ud)),
+            time.perf_counter() - t0)
+
+
+def _fd(fn, eps):
+    """Central difference at 0 of the scalar function fn(e)."""
+    return (float(fn(eps)) - float(fn(-eps))) / (2 * eps)
+
+
+def _poisson_inputs(model, seed=0):
+    """kappa DG0 1 + 0.5 U[0,1) from default_rng(seed), f and the
+    manufactured solution sin(pi x) sin(pi y) at the dofs (numpy)."""
+    import numpy as np
+
+    kappa = 1.0 + 0.5 * np.random.default_rng(seed).random(model.K.n_dofs)
+    x = np.asarray(model.V.dof_coords)
+    uex = np.sin(np.pi * x[:, 0]) * np.sin(np.pi * x[:, 1])
+    return kappa, 2.0 * np.pi ** 2 * uex, uex
+
+
+def phase_poisson(ck):
+    """PoissonModel P1 on createUnitSquareMesh(1024, 1024) (1,050,625 dofs,
+    2,097,152 cells, nd 3): evaluate + compliance.backward() in kappa and
+    f through point-Jacobi CG over the fused operator (the JAX package's
+    solver options), checked against a host SuperLU solve of the same
+    assembled system, the JAX digits and a central difference; the
+    element-matrix assembly timed alone; then Jacobi-GMRES(50) against
+    Jacobi-CG at 256x256, and the fused operator at Poisson's shape and on
+    a seeded non-symmetric operator and its transpose."""
+    import numpy as np
+    import torch
+
+    from femo_alpha_tpu_torch.assembly.assemble import element_matrices
+    from femo_alpha_tpu_torch.mesh import createUnitSquareMesh
+    from femo_alpha_tpu_torch.models import PoissonModel
+
+    t_phase = time.perf_counter()
+    kw = dict(dtype=torch.float64, device="cuda")
+    t0 = time.perf_counter()
+    model = PoissonModel(createUnitSquareMesh(POISSON_N, POISSON_N,
+                                              "triangle"))
+    build_s = time.perf_counter() - t0
+    pde = model.fea.states["u"].pde
+    n = pde.n_dofs
+    kappa, f, uex = _poisson_inputs(model)
+    kt = torch.as_tensor(kappa, **kw).requires_grad_(True)
+    ft = torch.as_tensor(f, **kw).requires_grad_(True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.evaluate(kt, ft)
+    J = out.compliance
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    J.backward()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    iters = {k: v["iters"] for k, v in pde.last_info.items()}
+    u = out.u.detach()
+    J = float(J.detach())
+    params = {"kappa": kt.detach(), "f": ft.detach()}
+    with torch.no_grad():
+        zero = torch.zeros(n, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        Ae = element_matrices(pde.form, zero, params)
+        torch.cuda.synchronize()
+        em_s = time.perf_counter() - t0
+        em_peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del Ae
+        # a central difference of the kappa gradient (warm solves)
+        d = torch.as_tensor(np.random.default_rng(1).standard_normal(
+            kappa.shape), **kw)
+        eps = 1e-6
+        t0 = time.perf_counter()
+        fd = _fd(lambda e: model.evaluate(params["kappa"] + e * d,
+                                          params["f"]).compliance, eps)
+        warm_fwd_s = (time.perf_counter() - t0) / 2
+        ad = float(torch.dot(kt.grad, d))
+        fd_err = abs(fd - ad) / abs(fd)
+    nodal, direct_s = _host_direct(pde, params, u)
+    un = u.cpu().numpy()
+    got = {"compliance": J, "mms_max_err": float(np.abs(un - uex).max())}
+    errs = {k: abs(got[k] / POISSON_DIGITS[k] - 1.0) for k in got}
+
+    # Jacobi-GMRES(50) against Jacobi-CG at 256x256
+    mesh_g = createUnitSquareMesh(POISSON_GMRES_N, POISSON_GMRES_N,
+                                  "triangle")
+    cg_m = PoissonModel(mesh_g)
+    gm_m = PoissonModel(mesh_g, solver_opts={"method": "gmres",
+                                             "pc": "jacobi"})
+    kap_g, f_g, _ = _poisson_inputs(cg_m)
+    with torch.no_grad():
+        u_cg = cg_m.evaluate(kap_g, f_g).u
+        before = ck.launch_counts()
+        t0 = time.perf_counter()
+        u_gm = gm_m.evaluate(kap_g, f_g).u
+        torch.cuda.synchronize()
+        gmres_s = time.perf_counter() - t0
+        gmres_l = _launch_delta(ck, before)
+    gm_info = gm_m.fea.states["u"].pde.last_info["forward"]
+    gmres_err = rel_norm(u_gm, u_cg)
+
+    # the fused operator at Poisson's shape (nd 3, nc 2,097,152) and on a
+    # seeded non-symmetric operator and its transpose (nd 3, nc 131,072)
+    with torch.no_grad():
+        Ae = pde._assemble_ops(zero, params)[0]
+        x = torch.randn(n, generator=torch.Generator(device="cuda")
+                        .manual_seed(10), **kw)
+        _, case = fused_case_bits(ck, "fused/poisson", Ae, pde._op_specs[0],
+                                  pde.free_mask, x)
+        del Ae
+        gpde = gm_m.fea.states["u"].pde
+        g = torch.Generator(device="cuda").manual_seed(11)
+        nc_g = mesh_g.n_cells
+        A_ns = torch.randn((3, 3, nc_g), generator=g, **kw)
+        x_g = torch.randn(gpde.n_dofs, generator=g, **kw)
+        _, case_ns = fused_case_bits(ck, "fused/nonsym", A_ns,
+                                     gpde._op_specs[0], gpde.free_mask, x_g)
+        _, case_nsT = fused_case_bits(
+            ck, "fused/nonsym_T", A_ns.permute(1, 0, 2).contiguous(),
+            gpde._op_specs[0], gpde.free_mask, x_g)
+    finite = bool(torch.isfinite(kt.grad).all()) and \
+        bool(torch.isfinite(ft.grad).all())
+    say("poisson", mesh=f"{POISSON_N}x{POISSON_N}", n_dofs=n,
+        cells=model.mesh.n_cells, inv_width=pde._op_specs[0].lane_tables(
+            u.device)[1].shape[1],
+        compliance=f"{J:.15e}", mms_max_err=f"{got['mms_max_err']:.15e}",
+        rel_err_vs_jax=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}),
+        nodal_err_vs_direct=f"{nodal:.3e}",
+        jax_nodal_err_vs_direct=f"{POISSON_DIGITS['nodal_err_vs_direct']:.3e}",
+        cg_iters=json.dumps(iters), jax_cg_iters=POISSON_DIGITS["cg_iters"],
+        fd=f"{fd:.9e}", adjoint=f"{ad:.9e}", fd_rel_err=f"{fd_err:.3e}",
+        build_s=f"{build_s:.3f}", first_fwd_s=f"{fwd_s:.3f}",
+        first_fwd_bwd_s=f"{first_s:.3f}", warm_fwd_s=f"{warm_fwd_s:.3f}",
+        element_matrices_s=f"{em_s:.3f}",
+        element_matrices_peak_gb=f"{em_peak_gb:.3f}",
+        peak_gb=f"{peak_gb:.3f}", direct_s=f"{direct_s:.1f}",
+        gmres_mesh=f"{POISSON_GMRES_N}x{POISSON_GMRES_N}",
+        gmres_vs_cg=f"{gmres_err:.3e}",
+        gmres_info=json.dumps({k: gm_info[k] for k in
+                               ("iters", "cycles", "converged")}),
+        gmres_s=f"{gmres_s:.3f}", gmres_launches=json.dumps(gmres_l),
+        launches=json.dumps(launches),
+        kernels=json.dumps([case, case_ns, case_nsT]),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if not finite or tuple(kt.grad.shape) != kappa.shape:
+        fail("poisson: non-finite or mis-shaped gradients")
+    if not nodal <= POISSON_BAR:
+        fail(f"poisson: nodal error vs SuperLU {nodal:.3e} > {POISSON_BAR}")
+    for k, e in errs.items():
+        if not e <= POISSON_BAR:
+            fail(f"poisson {k} {got[k]:.9e} vs the JAX package's "
+                 f"{POISSON_DIGITS[k]:.9e} (bar {POISSON_BAR})")
+    if not fd_err <= GENERIC_FD_BAR:
+        fail(f"poisson FD {fd:.9e} vs adjoint {ad:.9e}: rel {fd_err:.3e}")
+    if not (gmres_err <= POISSON_GMRES_BAR and gm_info["converged"]):
+        fail(f"poisson GMRES vs CG at {POISSON_GMRES_N}: {gmres_err:.3e} "
+             f"({gm_info})")
+    if launches["constrained_matvec_T"] <= 0 or \
+            gmres_l["constrained_matvec_T"] <= 0:
+        fail(f"poisson: the fused operator was never launched: {launches}, "
+             f"GMRES {gmres_l}")
+    return launches, [case, case_ns, case_nsT]
+
+
+def phase_nonlinear(ck):
+    """NonlinearPoissonModel P1 on createUnitSquareMesh(512, 512) (263,169
+    dofs), newton_iters=8: evaluate + compliance.backward() (fixed-trip
+    Newton, each step a Jacobi-CG over the fused operator, the adjoint at
+    the returned state), solve_checked's Newton count against the JAX
+    run's, the fixed-trip state against the checked one, and a central
+    difference of the kappa gradient (each side a checked Newton solve)."""
+    import numpy as np
+    import torch
+
+    from femo_alpha_tpu_torch.mesh import createUnitSquareMesh
+    from femo_alpha_tpu_torch.models import NonlinearPoissonModel
+
+    t_phase = time.perf_counter()
+    kw = dict(dtype=torch.float64, device="cuda")
+    model = NonlinearPoissonModel(
+        createUnitSquareMesh(NONLINEAR_N, NONLINEAR_N, "triangle"),
+        newton_iters=8)
+    pde = model.fea.states["u"].pde
+    rng = np.random.default_rng(3)
+    kappa = 1.0 + 0.5 * rng.random(model.K.n_dofs)
+    x = np.asarray(model.V.dof_coords)
+    f = 40.0 * np.sin(np.pi * x[:, 0]) * x[:, 1]
+    kt = torch.as_tensor(kappa, **kw).requires_grad_(True)
+    ft = torch.as_tensor(f, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.evaluate(kt, ft)
+    out.compliance.backward()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cg = [i["iters"] for i in pde.last_info["newton"]] + \
+        [pde.last_info["adjoint"]["iters"]]
+    J = float(out.compliance.detach())
+    u_fixed = out.u.detach()
+    t0 = time.perf_counter()
+    u_c, info = model.solve_checked(kt.detach(), ft)
+    torch.cuda.synchronize()
+    checked_s = time.perf_counter() - t0
+    fixed_vs_checked = rel_norm(u_fixed, u_c)
+    with torch.no_grad():
+        d = torch.as_tensor(np.random.default_rng(4).standard_normal(
+            kappa.shape), **kw)
+        eps = 1e-6
+        fd = _fd(lambda e: torch.dot(ft, model.solve_checked(
+            kt.detach() + e * d, ft)[0]), eps)
+        ad = float(torch.dot(kt.grad, d))
+        fd_err = abs(fd - ad) / abs(fd)
+    j_err = abs(J / NONLINEAR_DIGITS["compliance"] - 1.0)
+    say("nonlinear", mesh=f"{NONLINEAR_N}x{NONLINEAR_N}", n_dofs=pde.n_dofs,
+        newton_iters_fixed=8, compliance=f"{J:.15e}",
+        rel_err_vs_jax=f"{j_err:.3e}", checked_newton_iters=info["iters"],
+        jax_newton_iters=NONLINEAR_DIGITS["newton_iters"],
+        checked_resnorm=f"{info['resnorm']:.3e}",
+        fixed_vs_checked=f"{fixed_vs_checked:.3e}",
+        jax_fixed_vs_checked=f"{NONLINEAR_DIGITS['fixed_vs_checked']:.3e}",
+        cg_iters_per_solve=json.dumps(cg), fd=f"{fd:.9e}",
+        adjoint=f"{ad:.9e}", fd_rel_err=f"{fd_err:.3e}",
+        first_fwd_bwd_s=f"{first_s:.3f}", checked_s=f"{checked_s:.3f}",
+        peak_gb=f"{peak_gb:.3f}", launches=json.dumps(launches),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if not bool(torch.isfinite(kt.grad).all()):
+        fail("nonlinear: non-finite gradient")
+    if not info["converged"] or \
+            info["iters"] != NONLINEAR_DIGITS["newton_iters"]:
+        fail(f"nonlinear: solve_checked {info} vs the JAX run's "
+             f"{NONLINEAR_DIGITS['newton_iters']} Newton iterations")
+    if not fixed_vs_checked <= NONLINEAR_FIXED_BAR:
+        fail(f"nonlinear: fixed-trip state {fixed_vs_checked:.3e} from the "
+             f"checked one (bar {NONLINEAR_FIXED_BAR})")
+    if not j_err <= NONLINEAR_BAR:
+        fail(f"nonlinear compliance {J:.9e} vs the JAX package's "
+             f"{NONLINEAR_DIGITS['compliance']:.9e}")
+    if not fd_err <= GENERIC_FD_BAR:
+        fail(f"nonlinear FD {fd:.9e} vs adjoint {ad:.9e}: rel {fd_err:.3e}")
+    if launches["constrained_matvec_T"] <= 0:
+        fail(f"nonlinear: the fused operator was never launched: {launches}")
+    return launches
+
+
+def phase_elasticity(ck):
+    """ElasticityModel Q2 (nd 18) on createRectangleMesh(320, 32, (0, 0),
+    (10, 1), "quad") (83,330 dofs, 10,240 cells), E = 1e6, nu = 0,
+    q = -1: evaluate + compliance.backward() in thickness through
+    Jacobi-CG over the fused operator, checked against the Euler-Bernoulli
+    tip, the volume, a host SuperLU solve, the JAX digits and a central
+    difference, and the fused operator at its shape."""
+    import numpy as np
+    import torch
+
+    from femo_alpha_tpu_torch.mesh import createRectangleMesh
+    from femo_alpha_tpu_torch.models import ElasticityModel
+
+    t_phase = time.perf_counter()
+    kw = dict(dtype=torch.float64, device="cuda")
+    L, H, E, q = 10.0, 1.0, 1e6, -1.0
+    nx, ny = ELASTICITY_MESH
+    mesh = createRectangleMesh(nx, ny, (0, 0), (L, H), "quad")
+    model = ElasticityModel(mesh, E=E, nu=0.0)
+    pde = model.fea.states["u"].pde
+    f = np.zeros((mesh.n_nodes, 2))
+    f[:, 1] = q
+    ft = torch.as_tensor(f.reshape(-1), **kw)
+    tt = torch.ones(mesh.n_cells, **kw).requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.evaluate(tt, ft)
+    out.compliance.backward()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    iters = {k: v["iters"] for k, v in pde.last_info.items()}
+    u = out.u.detach()
+    got = {"compliance": float(out.compliance.detach()),
+           "volume": float(out.volume.detach()),
+           "tip": float(u.reshape(-1, 2)[:, 1].abs().max())}
+    eb = abs(q) * H * L ** 4 / (8 * E * (H ** 3 / 12))
+    eb_err = abs(got["tip"] - eb) / eb
+    params = {"thickness": tt.detach(), "f": ft}
+    with torch.no_grad():
+        d = torch.as_tensor(np.random.default_rng(5).standard_normal(
+            mesh.n_cells), **kw)
+        eps = 1e-6
+        t0 = time.perf_counter()
+        fd = _fd(lambda e: model.evaluate(tt.detach() + e * d, ft)
+                 .compliance, eps)
+        warm_fwd_s = (time.perf_counter() - t0) / 2
+        ad = float(torch.dot(tt.grad, d))
+        fd_err = abs(fd - ad) / abs(fd)
+        x = torch.randn(pde.n_dofs, generator=torch.Generator(device="cuda")
+                        .manual_seed(12), **kw)
+        Ae = pde._assemble_ops(torch.zeros(pde.n_dofs, **kw), params)[0]
+        _, case = fused_case_bits(ck, "fused/elasticity", Ae,
+                                  pde._op_specs[0], pde.free_mask, x)
+    nodal, direct_s = _host_direct(pde, params, u)
+    errs = {k: abs(got[k] / ELASTICITY_DIGITS[k] - 1.0) for k in got}
+    say("elasticity", mesh=f"{nx}x{ny}", n_dofs=pde.n_dofs,
+        cells=mesh.n_cells, nd=pde._op_specs[0].nd_local,
+        **{k: f"{v:.15e}" for k, v in got.items()},
+        tip_vs_euler_bernoulli=f"{eb_err:.3e}",
+        rel_err_vs_jax=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}),
+        nodal_err_vs_direct=f"{nodal:.3e}",
+        jax_nodal_err_vs_direct=f"{ELASTICITY_DIGITS['nodal_err_vs_direct']:.3e}",
+        cg_iters=json.dumps(iters),
+        jax_cg_iters=ELASTICITY_DIGITS["cg_iters"],
+        maxiter=min(max(500, 10 * pde.n_dofs), 200_000), fd=f"{fd:.9e}",
+        adjoint=f"{ad:.9e}", fd_rel_err=f"{fd_err:.3e}",
+        first_fwd_bwd_s=f"{first_s:.3f}", warm_fwd_s=f"{warm_fwd_s:.3f}",
+        direct_s=f"{direct_s:.1f}", peak_gb=f"{peak_gb:.3f}",
+        launches=json.dumps(launches), kernel=json.dumps(case),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if not bool(torch.isfinite(tt.grad).all()):
+        fail("elasticity: non-finite gradient")
+    if not eb_err <= EB_BAR:
+        fail(f"elasticity: tip {got['tip']:.6e} vs Euler-Bernoulli "
+             f"{eb:.6e} ({eb_err:.3e} > {EB_BAR})")
+    if not nodal <= ELASTICITY_BAR:
+        fail(f"elasticity: nodal error vs SuperLU {nodal:.3e} > "
+             f"{ELASTICITY_BAR}")
+    for k, e in errs.items():
+        if not e <= ELASTICITY_BAR:
+            fail(f"elasticity {k} {got[k]:.9e} vs the JAX package's "
+                 f"{ELASTICITY_DIGITS[k]:.9e} (bar {ELASTICITY_BAR})")
+    if not fd_err <= GENERIC_FD_BAR:
+        fail(f"elasticity FD {fd:.9e} vs adjoint {ad:.9e}: rel {fd_err:.3e}")
+    if launches["constrained_matvec_T"] <= 0:
+        fail(f"elasticity: the fused operator was never launched: "
+             f"{launches}")
+    return launches, case
+
+
+def phase_beam(ck):
+    """examples/basic_examples/beam_thickness_opt at its nel = 50: the
+    Hermite cantilever (dense Cholesky path, no kernel), check_totals of
+    the compliance in thickness (3 directions, eps 1e-7), and the SLSQP
+    study (min compliance s.t. volume = 0.01, maxiter 1000, ftol 1e-9)
+    through OptimizationProblem, held to the OpenMDAO golden at
+    tests/test_beam.py's bar. nit / nfev / njev are printed beside the JAX
+    run's: near the optimum SLSQP's path turns on gradient differences of
+    ~1e-9 (the beam's stiffness has condition number 1.8e8), so the counts
+    are not gated (on the CPU the port takes 112 / 376 / 112 against the
+    JAX package's 109 / 384 / 109, both to the golden within 3e-11)."""
+    import numpy as np
+    import scipy
+    import torch
+
+    from femo_alpha_tpu_torch.adjoint.check import check_totals
+    from femo_alpha_tpu_torch.models import EulerBernoulliBeamModel
+    from femo_alpha_tpu_torch.opt import OptimizationProblem
+
+    t_phase = time.perf_counter()
+    beam = EulerBernoulliBeamModel(nel=50)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    ct = check_totals(
+        lambda p: beam.evaluate(p["thickness"]).compliance,
+        {"thickness": torch.full((50,), 0.1, dtype=torch.float64,
+                                 device="cuda")},
+        eps=1e-7, directions=3, rtol=GENERIC_FD_BAR, verbose=False)
+    ct_s = time.perf_counter() - t0
+    prob = OptimizationProblem(lambda dv: beam.evaluate(dv["thickness"]))
+    prob.add_design_variable("thickness", 0.1 * np.ones(50), lower=1e-2,
+                             upper=10.0)
+    prob.set_objective("compliance")
+    prob.add_constraint("volume", equals=0.01)
+    t0 = time.perf_counter()
+    dvs, res = prob.solve(maxiter=1000, ftol=1e-9, report=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    th = dvs["thickness"].detach().cpu().numpy()
+    with torch.no_grad():
+        vol = float(beam.evaluate(dvs["thickness"]).volume)
+    golden_err = abs(res.fun / BEAM_GOLDEN - 1.0)
+    say("beam", nel=50, n_dofs=beam.V.n_dofs, scipy=scipy.__version__,
+        check_totals_max_rel=f"{ct:.3e}", check_totals_s=f"{ct_s:.3f}",
+        fun=f"{res.fun:.15e}", rel_err_vs_golden=f"{golden_err:.3e}",
+        jax_fun=f"{BEAM_DIGITS['fun']:.15e}", success=res.success,
+        nit=res.nit, nfev=res.nfev, njev=res.njev,
+        jax_counts=json.dumps({k: BEAM_DIGITS[k] for k in
+                               ("nit", "nfev", "njev")}),
+        volume=f"{vol:.15e}", thickness_first_last=json.dumps(
+            [f"{th[0]:.9e}", f"{th[-1]:.9e}"]),
+        wall_s=f"{wall:.3f}", wall_per_iter_s=f"{wall / max(res.nit, 1):.4f}",
+        evaluates=prob.counts["evaluate"], backwards=prob.counts["backward"],
+        launches=json.dumps(launches),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if not res.success or not golden_err <= BEAM_BAR:
+        fail(f"beam: SLSQP {res.message!r}, optimum {res.fun:.12e} vs the "
+             f"golden {BEAM_GOLDEN} ({golden_err:.3e} > {BEAM_BAR})")
+    if not abs(vol / 0.01 - 1.0) <= 1e-9:
+        fail(f"beam: volume {vol:.12e} at the optimum, not 0.01")
+    if any(launches.values()):
+        fail(f"beam: the dense path launched a kernel: {launches}")
+    return launches
 
 def phase_scale(ck):
     """The north star's scale point on the card: LibraryBench at 512x128
@@ -1879,6 +2384,10 @@ def main():
                    shape=phase_shape(ck, slice_iters),
                    shape_opt=phase_shape_opt(ck))
     by_path["pressure"], vf_mass_case = phase_pressure(ck)
+    by_path["poisson"], poisson_cases = phase_poisson(ck)
+    by_path["nonlinear"] = phase_nonlinear(ck)
+    by_path["elasticity"], elasticity_case = phase_elasticity(ck)
+    by_path["beam"] = phase_beam(ck)
     by_path["scale"], scale_cases = phase_scale(ck)
     at_scale = [_case_numbers(c) for c in scale_cases]
     launches = {k: sum(p[k] for p in by_path.values())
@@ -1898,7 +2407,11 @@ def main():
          "launches": launches["constrained_matvec_T"],
          "launches_by_path": {k: p["constrained_matvec_T"] for k, p in by_path.items()},
          **fused, "at_nc_65536": at_scale[0],
-         "at_vf_mass": _case_numbers(vf_mass_case)},
+         "at_vf_mass": _case_numbers(vf_mass_case),
+         "at_poisson": _case_numbers(poisson_cases[0]),
+         "at_nonsym": _case_numbers(poisson_cases[1]),
+         "at_nonsym_T": _case_numbers(poisson_cases[2]),
+         "at_elasticity": _case_numbers(elasticity_case)},
         {"name": "affine_combine", "route": "cuda",
          "source": "femo_alpha_tpu_torch/assembly/csrc/affine_combine.cu",
          "replaces": "femo_alpha_tpu/assembly/pallas_kernels.py:149",

@@ -16,7 +16,10 @@ transient shell (`models.dynamic_rm_shell.PlateSim`); modal analysis
 (`RMShellModel.evaluate_modal` / `modal_eigenvalues`, LOBPCG or a dense
 eigh, `solvers.eigen`) and the handbook buckling margins; the SLSQP
 design-optimization loop (`opt.OptimizationProblem`), the csdl
-operation contracts (`csdl_opt`) and npz checkpoints (`io`). See
+operation contracts (`csdl_opt`) and npz checkpoints (`io`); the generic
+FEA library (`models.PoissonModel`, `NonlinearPoissonModel`,
+`ElasticityModel`, `EulerBernoulliBeamModel`; Jacobi-CG, GMRES, Newton,
+dense Cholesky / LU solves in `solvers`) and the XDMF/VTU I/O (`io`). See
 ROADMAP.md for what remains.
 """
 

@@ -12,12 +12,17 @@ linearized solve uses the symmetrically masked operator
 B = f*A*f + (1-f)*I, and lam is zeroed at BC dofs.
 
 Facet forms (penalty BCs) add their residual, and their element matrices
-enter the operator as one more block. For these linear problems the facet
+enter the operator as one more block. For linear problems the facet
 Jacobian depends on the geometry parameters only (uhat), so it is
 assembled once per uhat value and reused (`_prepare_facet_ops`).
 `extra_residual(u, params)` adds a load term that does not depend on u
-(the force vector of the force-to-pressure map): it enters the residual
-and its parameter gradients, not the operator.
+(the force vector of the force-to-pressure map, the beam's tip load): it
+enters the residual and its parameter gradients, not the operator.
+
+Nonlinear problems take `newton_iters` > 1: a fixed-trip Newton loop
+(each step linearizes at the current u and solves), then one more
+linearization at the RETURNED u, which the adjoint uses — J(u_{N-1})^T
+would bias the gradients by O(|u_N - u_{N-1}|).
 
 Preconditioners take part through a split protocol:
     prepare(params, grad_keys) -> aux          (e.g. affine bases)
@@ -27,7 +32,9 @@ Preconditioners take part through a split protocol:
 that required grad (the counterpart of the JAX package's tracer test), so
 that a cached basis is not built for a geometry that is being
 differentiated: the element-matrix function and the preconditioner then
-assemble directly, once per solve.
+assemble directly, once per solve. A plain factory
+`precond_factory(u, params) -> M` (no `setup_state`) is called at each
+linearization instead, as the JAX package's `make_solver` does.
 """
 
 from __future__ import annotations
@@ -53,23 +60,25 @@ class ImplicitPDE:
 
     def __init__(self, form: FemForm, free_mask, bc_vals, solver_opts=None,
                  element_matrices_fn=None, facet_forms=(),
-                 extra_residual=None):
+                 extra_residual=None, newton_iters=1):
         self.form = form
         self.extra_residual = extra_residual
         self.n_dofs = form.space.n_dofs
         self.free_mask = free_mask
         self.bc_vals = bc_vals
+        self.newton_iters = newton_iters
         self.solver_opts = dict(solver_opts or {})
         self.element_matrices_fn = element_matrices_fn
         self.facet_forms = [ff for ff in facet_forms if ff.groups]
         # static op layout: the cell block, then one block per facet form
         self._op_specs = [form.space] + [ff.block for ff in self.facet_forms]
         self._fops_cache = None
-        self._pc = self.solver_opts.pop("precond_factory", None)
-        if self._pc is not None and not hasattr(self._pc, "setup_state"):
-            raise NotImplementedError(
-                "ImplicitPDE: only split-protocol preconditioners are "
-                "ported to femo_alpha_tpu_torch (ROADMAP.md, Queue 1)")
+        pf = self.solver_opts.pop("precond_factory", None)
+        # split protocol (prepare/setup_state/apply_state), or a plain
+        # factory pf(u, params) -> M
+        split = pf is not None and hasattr(pf, "setup_state")
+        self._pc = pf if split else None
+        self._pf = None if split else pf
         self.last_info = {}
 
     # -------------------------------------------------- raw pieces
@@ -104,7 +113,9 @@ class ImplicitPDE:
 
     def _solver_from(self, ops_Ae, M_state):
         M = None
-        if M_state is not None:
+        if self._pf is not None:
+            M = M_state
+        elif M_state is not None:
             def M(v):
                 return self._pc.apply_state(M_state, v)
         return LinearSolver(list(zip(ops_Ae, self._op_specs)), self.n_dofs,
@@ -117,6 +128,8 @@ class ImplicitPDE:
         and the geometry only)."""
         if not self.facet_forms:
             return []
+        if self.newton_iters != 1:
+            return None  # nonlinear: assembled at each linearization
         keys = sorted({k for ff in self.facet_forms for k in ff.param_specs})
         h = hashlib.sha1()
         for k in keys:
@@ -146,21 +159,33 @@ class ImplicitPDE:
         emf_basis, pc_aux, facet_ops = aux
         ops_Ae = self._assemble_ops(u, params, emf_basis=emf_basis,
                                     facet_ops=facet_ops, direct=True)
-        M_state = (self._pc.setup_state(u, params, ops_Ae, pc_aux)
-                   if self._pc is not None else None)
+        if self._pf is not None:
+            M_state = self._pf(u, params)
+        elif self._pc is not None:
+            M_state = self._pc.setup_state(u, params, ops_Ae, pc_aux)
+        else:
+            M_state = None
         return ops_Ae, M_state
 
     def _newton_state(self, params, u0, aux):
-        """One Newton step from u0 (exact for these linear problems):
-        returns (u, linearization state) — the state is what the adjoint
-        reuses."""
+        """newton_iters Newton steps from u0 (one is exact for a linear
+        problem): returns (u, linearization state) — the state is what
+        the adjoint reuses, re-linearized at the returned u when the
+        problem is nonlinear. last_info["forward"] is the last step's
+        solve; "newton" lists every step's."""
         f = self.free_mask
         u = f * u0 + (1.0 - f) * self.bc_vals
-        r = self.residual(u, params)
-        ops_Ae, M_state = self._linearize(u, params, aux)
-        solver = self._solver_from(ops_Ae, M_state)
-        u = u - solver.solve(r)
-        self.last_info["forward"] = solver.last_info
+        infos = []
+        for _ in range(self.newton_iters):
+            r = self.residual(u, params)
+            ops_Ae, M_state = self._linearize(u, params, aux)
+            solver = self._solver_from(ops_Ae, M_state)
+            u = u - solver.solve(r)
+            infos.append(solver.last_info)
+        self.last_info["forward"] = infos[-1]
+        if self.newton_iters > 1:
+            self.last_info["newton"] = infos
+            ops_Ae, M_state = self._linearize(u, params, aux)
         return u, (ops_Ae, M_state)
 
     def make_solver(self, u, params) -> LinearSolver:

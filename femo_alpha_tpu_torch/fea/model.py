@@ -26,22 +26,36 @@ class VariableGroup(SimpleNamespace):
             return val
         raise AttributeError(name)
 
+    def to_dict(self):
+        """Every entry as a dict, still-lazy ones computed first."""
+        for name in list(self.__dict__.get("_lazy", {})):
+            getattr(self, name)
+        return {k: v for k, v in self.__dict__.items() if k != "_lazy"}
+
 
 class FEAModel:
-    def __init__(self, fea):
+    def __init__(self, fea, warm_start=True):
         """fea: list of FEA problems (evaluated in order, states chained).
-        Each solve starts from the previous evaluation's solution."""
+
+        warm_start: start each solve from the previous evaluation's
+        solution (detached) as the Newton initial guess."""
         self.fea_list = fea if isinstance(fea, (list, tuple)) else [fea]
+        self.warm_start = warm_start
         self._last_states: dict = {}
 
     def evaluate(self, inputs) -> VariableGroup:
-        vals = dict(inputs)
+        """inputs: dict or VariableGroup of input tensors keyed by input
+        name. Returns a VariableGroup with inputs, states, outputs and
+        field outputs."""
+        vals = dict(inputs.to_dict() if hasattr(inputs, "to_dict")
+                    else inputs)
         out = VariableGroup()
         for fea in self.fea_list:
             for sname, st in fea.states.items():
                 params = {k: vals[k] for k in st.arguments}
-                u = fea.solve(sname, params,
-                              u0=self._last_states.get(sname))
+                u0 = self._last_states.get(sname) if self.warm_start \
+                    else None
+                u = fea.solve(sname, params, u0=u0)
                 vals[sname] = u
                 self._last_states[sname] = u.detach()
             for oname in fea.outputs:

@@ -74,17 +74,17 @@ def createUnitSquareMesh(nx: int, ny: int, cell_type: str = "triangle") -> Mesh:
 
 
 def readFEAMesh(filename, gdim: int = 3) -> Mesh:
-    """Read a mesh file by extension: gmsh ASCII v2.2/v4.1 (.msh). The XDMF
-    reader (.xdmf + HDF5) is not ported yet."""
+    """Read a mesh file by extension: gmsh ASCII v2.2/v4.1 (.msh) or the
+    dolfinx-layout XDMF (+HDF5 or inline XML; io/xdmf.py)."""
     name = str(filename)
     if name.endswith(".msh"):
         from ..io.gmsh import read_msh
 
         return read_msh(name, gdim=gdim)
     if name.endswith(".xdmf"):
-        raise NotImplementedError(
-            "readFEAMesh: the XDMF reader is not ported to "
-            "femo_alpha_tpu_torch yet (ROADMAP.md, Queue 1 item 12)")
+        from ..io.xdmf import read_xdmf_mesh
+
+        return read_xdmf_mesh(name)
     raise ValueError(f"unsupported mesh format: {name} (.msh/.xdmf)")
 
 

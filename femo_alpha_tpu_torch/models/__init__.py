@@ -1,5 +1,10 @@
-"""Models (port of femo_alpha_tpu/models): the RM shell."""
+"""Models (port of femo_alpha_tpu/models): the RM shell, Poisson (linear
+and nonlinear), plane elasticity and the Hermite beam."""
 
+from .beam import EulerBernoulliBeamModel
+from .elasticity import ElasticityModel
+from .poisson import NonlinearPoissonModel, PoissonModel
 from .rm_shell import RMShellModel
 
-__all__ = ["RMShellModel"]
+__all__ = ["EulerBernoulliBeamModel", "RMShellModel",
+           "NonlinearPoissonModel", "PoissonModel", "ElasticityModel"]

@@ -60,6 +60,7 @@ from ...assembly.bc import DirichletBC, combine_bcs
 from ...device import resolve_device, tensor_on
 from ...solvers.krylov import cg_solve
 from ...solvers.linear import LinearSolver
+from ...solvers.precond import jacobi_preconditioner
 from ...spaces.pointeval import point_eval_rows
 from ..rm_shell.kinematics import surface_geometry
 from ..rm_shell.mg import strong_bc_dofs
@@ -99,13 +100,7 @@ class _StepOperators:
         else:
             # Jacobi: the constrained operator's diagonal
             with torch.no_grad():
-                diag = W.scatter_add(torch.diagonal(Ae, dim1=0, dim2=1))
-                diag = free * diag + (1.0 - free)
-                inv = torch.where(diag != 0, 1.0 / diag,
-                                  torch.ones_like(diag))
-
-            def Minv(v):
-                return inv * v
+                Minv = jacobi_preconditioner(Ae, W, W.n_dofs, free)
         self.Minv = Minv
         n = W.n_dofs
         self.maxiter = (int(sim.inner_iters) if sim.inner_iters is not None

@@ -20,7 +20,9 @@ The solve, by configuration (as the reference chooses it):
   hierarchy: PCG preconditioned by the geometric-MG V-cycle;
 - otherwise — penalty BCs (the default) or an unstructured mesh: PCG
   preconditioned by the f64 band Cholesky of the RCM-ordered system
-  (solvers/band.py), factored once per design and reused by the adjoint.
+  (solvers/band.py), factored once per design and reused by the adjoint;
+- custom `solver_opts`: used verbatim by the LinearSolver (e.g.
+  {"method": "gmres", "pc": "jacobi"}), as the reference uses them.
 Every operator application goes through the fused constrained operator
 (constrained_matvec_T: the cell block and, with penalty BCs, the facet
 block) and every per-design re-assembly of the cell operator through the
@@ -43,10 +45,12 @@ eigenvalues differentiable in thickness, E, nu and density through the
 Rayleigh quotient at the converged modes; `node_disp` there is a fixed
 geometry.
 
+`record` is stored, as the reference stores it (it writes nothing).
+
 Not ported yet (ROADMAP.md, Queue 1), raising NotImplementedError before
 the device is looked at: composite laminates, nodal (CG1) material fields,
-custom solver_opts, other element types and dtypes, `record=True` (the
-XDMF recorder). Past the band memory guard the reference falls back to an
+other element types and dtypes. Past the band memory guard the reference
+falls back to an
 aggregation AMG, which is not ported either: that raises too. The model
 runs on the CUDA card unless `device` names another; without a card and
 without `device` it raises (pass device="cpu" for the CPU).
@@ -119,15 +123,10 @@ class RMShellModel:
             raise ValueError(
                 "Please provide the shell bc location function.\n"
                 "Example: def ClampedBoundary(x): return x[:, 1] < 0.0")
-        if record:
-            raise _not_ported("record=True (io/recorder.py, the XDMF "
-                              "writer)")
         if composite_clt is not None:
             raise _not_ported("composite_clt")
         if not element_wise_material:
             raise _not_ported("element_wise_material=False")
-        if solver_opts is not None:
-            raise _not_ported("custom solver_opts")
         if dtype != torch.float64:
             raise _not_ported(f"dtype={dtype} (the solve runs in f64)")
         if element_type != "CG2CG1":
@@ -135,6 +134,7 @@ class RMShellModel:
         self.mesh = mesh
         self.mesh_tags = mesh_tags
         self.record = record
+        self.solver_opts = solver_opts
         self.shell_bc_func = shell_bc_func
         self.element_wise_material = element_wise_material
         self.m, self.rho = 1e-6, rho
@@ -171,6 +171,8 @@ class RMShellModel:
     # ------------------------------------------------------------ FEA setup
     def _solver_opts(self, pde, residual_form, facet_forms, bc_dofs):
         """The reference's choice of solver (see the module docstring)."""
+        if self.solver_opts is not None:
+            return dict(self.solver_opts)
         n = pde.W.n_dofs
         if n <= 6000:
             return {"method": "dense"}

@@ -509,11 +509,12 @@ class RMShellPDE:
 
     def make_force_to_pressure_solver(self):
         """solve_pressure(F) -> p: the differentiable solve of (VF mass
-        matrix) p = F, for F in the FE order. Unpreconditioned CG at tol
-        1e-12, as the JAX package configures it, whose every application is
-        the fused operator on the VF mass form's element matrices; its
-        backward is one more solve. `solve_pressure.pde` is the
-        ImplicitPDE (its last_info holds the CG iterations)."""
+        matrix) p = F, for F in the FE order. Point-Jacobi CG at tol 1e-12
+        (the LinearSolver's default preconditioner, which the JAX package's
+        {"method": "cg", "tol": 1e-12} also selects), whose every
+        application is the fused operator on the VF mass form's element
+        matrices; its backward is one more solve. `solve_pressure.pde` is
+        the ImplicitPDE (its last_info holds the CG iterations)."""
         from ...adjoint.implicit import ImplicitPDE
 
         VF = self.VF

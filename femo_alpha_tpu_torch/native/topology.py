@@ -16,12 +16,15 @@ def build_edges(conn, local_edges):
     le = np.ascontiguousarray(local_edges, dtype=np.int32)
     nc = conn.shape[0]
     n_le = le.shape[0]
-    pairs = conn[:, le]  # (nc, n_le, 2)
-    key = np.sort(pairs.reshape(-1, 2), axis=1)
-    uniq, inv, counts = np.unique(key, axis=0, return_inverse=True,
+    pairs = np.sort(conn[:, le].reshape(-1, 2), axis=1)  # (nc*n_le, 2)
+    # one int64 key per sorted pair orders the pairs lexicographically:
+    # a 1-D unique, many times faster than unique(axis=0) on the rows
+    n = np.int64(max(int(conn.max(initial=0)) + 1, 1))
+    key = pairs[:, 0].astype(np.int64) * n + pairs[:, 1]
+    uniq, inv, counts = np.unique(key, return_inverse=True,
                                   return_counts=True)
     return (
-        uniq.astype(np.int32),
+        np.stack([uniq // n, uniq % n], axis=1).astype(np.int32),
         inv.reshape(nc, n_le).astype(np.int32),
         counts.astype(np.int32),
     )

@@ -1,7 +1,16 @@
-"""Krylov solver, geometric multigrid and the linear-solver facade."""
+"""Krylov solvers, Newton, preconditioners, geometric multigrid and the
+linear-solver facade."""
 
-from .krylov import cg_solve
+from .krylov import cg_solve, gmres_solve
 from .linear import LinearSolver
 from .multigrid import GeometricMG
+from .newton import newton_solve
+from .precond import (
+    block_jacobi_preconditioner,
+    jacobi_preconditioner,
+    mixed_block_jacobi,
+)
 
-__all__ = ["cg_solve", "LinearSolver", "GeometricMG"]
+__all__ = ["cg_solve", "gmres_solve", "LinearSolver", "GeometricMG",
+           "newton_solve", "jacobi_preconditioner", "mixed_block_jacobi",
+           "block_jacobi_preconditioner"]

@@ -1,16 +1,20 @@
-"""LinearSolver: one object per linearized system — preconditioned CG on
-the strong-BC-constrained, lane-major matrix-free operator (the fused
-constrained_matvec_T kernel on the card), or a dense f64 Cholesky solve.
+"""LinearSolver: one object per linearized system — preconditioned CG or
+restarted GMRES on the strong-BC-constrained, lane-major matrix-free
+operator (the fused constrained_matvec_T kernel on the card), or a dense
+f64 factorization (Cholesky, or LU for a non-symmetric operator).
 
-Port of the CG + external-preconditioner and dense paths of
-femo_alpha_tpu/solvers/linear.py::LinearSolver. The operator is a SUM of
-element blocks: the cell block and, with penalty BCs, one facet block
-(every facet group concatenated, on the owning cells' dofmap rows). Each
-block is one application of the fused operator kernel, so with facets an
-operator application is two kernel calls. The constrained operator
-B = f*A*f + (1-f)*I is symmetric, so the transposed (adjoint) solve reuses
-the forward matvec. The GMRES and Jacobi paths are not ported yet
-(ROADMAP.md, Queue 1).
+Port of femo_alpha_tpu/solvers/linear.py::LinearSolver. The operator is a
+SUM of element blocks: the cell block and, with penalty BCs, one facet
+block (every facet group concatenated, on the owning cells' dofmap rows).
+Each block is one application of the fused operator kernel, so with
+facets an operator application is two kernel calls. The constrained
+operator B = f*A*f + (1-f)*I of a symmetric A is symmetric, so the
+transposed (adjoint) solve reuses the forward matvec; with
+symmetric=False the transposed operator is the fused operator on the
+transposed blocks Ae.permute(1, 0, 2) (made at the first transposed
+solve). Without an external preconditioner M the iterative paths use
+point Jacobi from the blocks' diagonals (pc="jacobi", the reference's
+default) or none (pc=None).
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ import torch
 
 from ..assembly.assemble import make_constrained_matvec_T
 from .direct import apply_bc_dense
-from .krylov import cg_solve
+from .krylov import cg_solve, gmres_solve
+from .precond import jacobi_from_blocks
 
 
 def dense_from_blocks(ops, n_dofs):
@@ -37,70 +42,107 @@ def dense_from_blocks(ops, n_dofs):
     return A
 
 
+def _sum_of_blocks(ops, free_mask):
+    """The constrained operator of a list of lane-major blocks: one fused
+    operator per block; every block adds (1-f)*x, the sum keeps it once."""
+    mvs = [make_constrained_matvec_T(Ae, sp, free_mask) for Ae, sp in ops]
+    if len(mvs) == 1:
+        return mvs[0]
+    extra = None
+    if not bool((free_mask == 1).all()):
+        extra = (len(mvs) - 1) * (1.0 - free_mask)
+
+    def matvec(x):
+        y = mvs[0](x)
+        for mv in mvs[1:]:
+            y = y + mv(x)
+        return y if extra is None else y - extra * x
+
+    return matvec
+
+
 class LinearSolver:
     """Solve A x = b with strong-BC masking.
 
     ops: [(Ae (nd, nd, nc) lane-major, spec)] — the cell block first, its
     spec a space; further blocks (facets) with specs that carry a dofmap
-    and lane tables (assembly/facets.py::FacetBlock). method: 'cg' (M: the
-    preconditioner application v -> M^{-1} v, e.g. an MG V-cycle or the
-    band Cholesky) or 'dense' (f64 Cholesky of the constrained matrix;
-    raises if it is not positive definite)."""
+    and lane tables (assembly/facets.py::FacetBlock). method: 'cg' (CG when
+    symmetric, else GMRES), 'gmres' (restart 50, maxiter // 50 cycles) or
+    'dense' (an f64 Cholesky of the constrained matrix, which raises if it
+    is not positive definite; an LU with symmetric=False). M: an external
+    preconditioner application v -> M^{-1} v (e.g. an MG V-cycle or the
+    band Cholesky); without one, pc='jacobi' builds point Jacobi and
+    pc=None applies none."""
 
-    def __init__(self, ops, n_dofs, free_mask=None, method="cg", tol=1e-12,
-                 maxiter=None, M=None):
-        if method not in ("cg", "dense"):
-            raise NotImplementedError(
-                f"LinearSolver: method={method!r} is not ported to "
-                "femo_alpha_tpu_torch yet (ROADMAP.md, Queue 1)")
+    def __init__(self, ops, n_dofs, free_mask=None, method="cg", pc="jacobi",
+                 tol=1e-12, maxiter=None, symmetric=True, M=None):
         Ae0 = ops[0][0]
         self.ops = ops
         self.n = n_dofs
         self.tol = tol
+        self.symmetric = symmetric
         self.maxiter = maxiter or min(max(500, 10 * n_dofs), 200_000)
         self.free_mask = (torch.ones(n_dofs, dtype=Ae0.dtype,
                                      device=Ae0.device)
                           if free_mask is None else free_mask)
         self.method = method
-        self.M = M
         self.last_info = None
-        self._chol = None
+        self._chol = self._lu = None
+        self._matvecT = None
+        self.M = None
         if method == "dense":
             A = apply_bc_dense(dense_from_blocks(ops, n_dofs),
                                self.free_mask)
-            L, info = torch.linalg.cholesky_ex(A)
-            if int(info) != 0:
-                raise RuntimeError(
-                    f"LinearSolver: the dense constrained matrix is not "
-                    f"positive definite (Cholesky info {int(info)})")
-            self._chol = L
-        # the constrained operator, on both paths (the modal path applies
+            if symmetric:
+                L, info = torch.linalg.cholesky_ex(A)
+                if int(info) != 0:
+                    raise RuntimeError(
+                        f"LinearSolver: the dense constrained matrix is not "
+                        f"positive definite (Cholesky info {int(info)})")
+                self._chol = L
+            else:
+                self._lu = torch.linalg.lu_factor(A)
+        elif M is not None:
+            self.M = M
+        elif pc == "jacobi":
+            self.M = jacobi_from_blocks(ops, n_dofs, self.free_mask)
+        # the constrained operator, on every path (the modal path applies
         # it on the dense one too)
-        mvs = [make_constrained_matvec_T(Ae, sp, self.free_mask)
-               for Ae, sp in ops]
-        if len(mvs) == 1:
-            self.matvec = mvs[0]
-            return
-        # every block adds (1-f)*x; the sum keeps it once
-        extra = None
-        if not bool((self.free_mask == 1).all()):
-            extra = (len(mvs) - 1) * (1.0 - self.free_mask)
+        self.matvec = _sum_of_blocks(ops, self.free_mask)
 
-        def matvec(x):
-            y = mvs[0](x)
-            for mv in mvs[1:]:
-                y = y + mv(x)
-            return y if extra is None else y - extra * x
+    @property
+    def matvecT(self):
+        """The transposed constrained operator: the forward one when
+        symmetric, else the fused operator on the transposed blocks."""
+        if self.symmetric:
+            return self.matvec
+        if self._matvecT is None:
+            self._matvecT = _sum_of_blocks(
+                [(Ae.permute(1, 0, 2).contiguous(), sp)
+                 for Ae, sp in self.ops], self.free_mask)
+        return self._matvecT
 
-        self.matvec = matvec
+    def _krylov(self, op, b, x0):
+        if self.method == "cg" and self.symmetric:
+            return cg_solve(op, b, x0=x0, M=self.M, tol=self.tol,
+                            maxiter=self.maxiter)
+        return gmres_solve(op, b, x0=x0, M=self.M, tol=self.tol,
+                           maxiter=max(2, self.maxiter // 50))
 
-    def solve(self, b):
+    def solve(self, b, x0=None):
         if self._chol is not None:
             return torch.cholesky_solve(b[:, None], self._chol)[:, 0]
-        x, self.last_info = cg_solve(self.matvec, b, M=self.M, tol=self.tol,
-                                     maxiter=self.maxiter)
+        if self._lu is not None:
+            return torch.linalg.lu_solve(*self._lu, b[:, None])[:, 0]
+        x, self.last_info = self._krylov(self.matvec, b, x0)
         return x
 
-    def solve_transpose(self, b):
-        """The constrained operator is symmetric: the same solve."""
-        return self.solve(b)
+    def solve_transpose(self, b, x0=None):
+        """The adjoint solve: the forward one when symmetric."""
+        if self._chol is not None:
+            return self.solve(b)
+        if self._lu is not None:
+            return torch.linalg.lu_solve(*self._lu, b[:, None],
+                                         adjoint=True)[:, 0]
+        x, self.last_info = self._krylov(self.matvecT, b, x0)
+        return x

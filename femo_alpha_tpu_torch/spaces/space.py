@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, tensor_on
-from ..elements import reference_element
+from ..elements import reference_element, tabulate
 from ..mesh import Mesh
 from .fixed_order import fixed_order_scatter, sum_plan
 
@@ -241,6 +241,14 @@ class FunctionSpace(_LaneTables):
                 -1, self.mesh.gdim)
             self._dof_coords = coords
         return self._dof_coords
+
+    def tabulate(self, quad_degree=None, with_hessian=False, points=None,
+                 weights=None):
+        """The element's tables (elements.ElementTables, numpy) at a Gauss
+        rule of `quad_degree` or at the given points and weights."""
+        return tabulate(self.family, self.mesh.cell_type, self.degree,
+                        quad_degree=quad_degree, with_hessian=with_hessian,
+                        points=points, weights=weights)
 
     def __repr__(self):
         return (f"FunctionSpace({self.element.name}, vs={self.value_size}, "

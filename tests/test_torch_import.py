@@ -28,7 +28,8 @@ def test_every_module_imports_without_jax():
     assert "femo_alpha_tpu_torch.assembly.cuda_kernels" in mods
     assert "femo_alpha_tpu_torch.models.rm_shell.model" in mods
     # the default aircraft configuration's, the transient shell's, the
-    # optimization and modal path's and the benchmark's modules, among them
+    # optimization and modal path's, the benchmark's and the generic FEA
+    # library's modules, among them
     for m in ("io.gmsh", "mesh.wing", "solvers.band", "assembly.facets",
               "models.dynamic_rm_shell", "models.dynamic_rm_shell.plate_sim",
               "models.dynamic_rm_shell.mg", "spaces.pointeval",
@@ -37,7 +38,9 @@ def test_every_module_imports_without_jax():
               "utils", "utils.logging", "utils.timing", "io.checkpoint",
               "solvers.eigen", "solvers.direct",
               "models.rm_shell.buckling", "utils.quality", "benchmarks",
-              "bench"):
+              "bench", "config", "io.xdmf", "io.recorder", "models.poisson",
+              "models.elasticity", "models.beam", "solvers.newton",
+              "solvers.precond"):
         assert "femo_alpha_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -96,9 +99,11 @@ def test_kernel_wrappers_refuse_bad_input(case):
                                   "composite", "nodal_material"])
 def test_unported_configurations_raise(what, monkeypatch):
     """What each path still lacks: past the band memory guard (penalty BCs,
-    or strong BCs on an unstructured mesh) the reference's AMG fallback;
-    on the dense path a solver of the caller's choice (solver_opts); and
-    the options below."""
+    or strong BCs on an unstructured mesh) the reference's AMG fallback,
+    and the options below. On the dense path a solver of the caller's
+    choice (solver_opts) is ported: the options reach the LinearSolver as
+    given (Jacobi-GMRES(50) here, which stagnates on this shell as the
+    reference's does, and stops after its maxiter // 50 cycles)."""
     from femo_alpha_tpu_torch.mesh import createRectangleMesh
     from femo_alpha_tpu_torch.models import RMShellModel
 
@@ -115,6 +120,21 @@ def test_unported_configurations_raise(what, monkeypatch):
         kw["solver_opts"] = {"method": "gmres", "pc": "jacobi"}
     if what in ("penalty", "unstructured"):
         monkeypatch.setenv("FEMO_BAND_MEM_GB", "0.001")
+    if what == "dense":
+        model = RMShellModel(mesh, **kw)
+        pde = model.fea.states["disp_solid"].pde
+        assert pde.solver_opts == {"method": "gmres", "pc": "jacobi",
+                                   "tol": 1e-12}
+        nel, nn = mesh.n_cells, mesh.n_nodes
+        f = np.zeros((nn, 3))
+        f[:, 2] = 2.0
+        out = model.evaluate(f, np.full(nel, 0.2), np.full(nel, 4.32e8),
+                             np.zeros(nel), np.full(nel, 100.0))
+        assert bool(torch.isfinite(out.disp_solid).all())
+        info = pde.last_info["forward"]
+        assert info["cycles"] == max(2, min(max(500, 10 * pde.n_dofs),
+                                            200_000) // 50)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         RMShellModel(mesh, **kw)
 

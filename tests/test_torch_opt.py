@@ -325,17 +325,16 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 def test_record_option_and_unported_modal_inputs():
-    """record=False (what every optimization example passes) is accepted;
-    record=True (the XDMF recorder) raises NotImplementedError naming
-    ROADMAP.md. The mesh-motion input of the modal path, once unported,
-    is accepted: a zero node_disp gives the eigenvalues of no motion."""
+    """record=False (what every optimization example passes) and
+    record=True are accepted; the flag is stored, as the reference stores
+    it. The mesh-motion input of the modal path, once unported, is
+    accepted: a zero node_disp gives the eigenvalues of no motion."""
     mesh = createRectangleMesh(4, 2, (0, 0), (2.0, 1.0), "quad", gdim=3)
     kw = dict(shell_bc_func=lambda x: x[:, 0] < 1e-12,
               element_wise_material=True, PENALTY_BC=False, device="cpu")
     model = RMShellModel(mesh, record=False, **kw)
     assert model.record is False
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        RMShellModel(mesh, record=True, **kw)
+    assert RMShellModel(mesh, record=True, **kw).record is True
     nel = mesh.n_cells
     args = (np.full(nel, 0.1), np.full(nel, 1e9), np.zeros(nel),
             np.ones(nel))

@@ -1,7 +1,7 @@
 """The force-to-pressure map of the port on the CPU, against the live JAX
 package: RMShellPDE.make_force_to_pressure_solver (the differentiable
-solve of (VF mass matrix) p = F: unpreconditioned CG at tol 1e-12 over the
-fused operator) and RMShellModel.evaluate(is_pressure=False) on the
+solve of (VF mass matrix) p = F: point-Jacobi CG at tol 1e-12 over the
+fused operator, as the JAX package's LinearSolver defaults to) and RMShellModel.evaluate(is_pressure=False) on the
 generated wing createWingShellMesh(6, 10, rib_stations=(5,)) (penalty
 BCs, n_dofs <= 6000: both packages take the dense f64 Cholesky path), and
 the PlateSim `sim.pde` call of
@@ -96,6 +96,27 @@ def test_force_to_pressure_solver_matches_reference(ref_env):
     info = solve.pde.last_info
     assert 0 < info["forward"]["iters"] < 200
     assert info["forward"]["converged"] and info["adjoint"]["converged"]
+
+
+def test_force_to_pressure_solve_is_jacobi_pcg_as_the_reference(ref_env):
+    """The mass solve's preconditioner is the reference's: its
+    {"method": "cg", "tol": 1e-12} reaches LinearSolver(pc="jacobi"), point
+    Jacobi from the mass matrix's diagonal, so the port's CG takes the JAX
+    run's iteration count (an unpreconditioned CG takes more)."""
+    mesh, rmesh = createWingShellMesh(**KW), ref_wing(**KW)
+    solve = RMShellPDE(mesh, element_wise_material=True, device="cpu") \
+        .make_force_to_pressure_solver()
+    ref_pde = RefPDE(rmesh, element_wise_material=True) \
+        .make_force_to_pressure_solver().pde
+    F = _forces(mesh.n_nodes).reshape(-1)
+    p = solve(torch.tensor(F))
+    params = {"F_vec": jnp.asarray(F)}
+    u0 = jnp.zeros(ref_pde.n_dofs)
+    ref_solver = ref_pde.make_solver(u0, params)
+    p_r = -ref_solver.solve(ref_pde.residual(u0, params))
+    assert _rel(p, p_r) <= 1e-10
+    assert solve.pde.last_info["forward"]["iters"] == \
+        int(ref_solver.last_info["iters"])
 
 
 @pytest.fixture(scope="module")

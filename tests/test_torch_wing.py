@@ -87,8 +87,14 @@ def test_wing_mesh_matches_reference():
 
 
 def test_xdmf_reader_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        readFEAMesh(os.path.join(DATA, "plate_2_10_quad_10_50.xdmf"))
+    """Once unported, the XDMF reader is now ported: readFEAMesh on the
+    reference's shipped plate gives the JAX reader's mesh (the name is
+    kept from when this test held the raise)."""
+    path = os.path.join(DATA, "plate_2_10_quad_10_50.xdmf")
+    mesh, ref = readFEAMesh(path), ref_read(path)
+    assert mesh.cell_type == ref.cell_type
+    assert np.array_equal(mesh.conn, np.asarray(ref.conn))
+    assert np.array_equal(mesh.coords, np.asarray(ref.coords))
 
 
 def _pdes(n_chord, n_span, ribs):
