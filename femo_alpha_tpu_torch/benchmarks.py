@@ -80,9 +80,13 @@ class LibraryBench:
     thickness 0.2, compliance and its exact thickness gradient by
     `out.compliance.backward()`. penalty=False (the default) clamps by
     strong-BC elimination (the geometric-MG solve path); penalty=True by
-    the reference-default penalty facets (band Cholesky)."""
+    the reference-default penalty facets (band Cholesky). mg_cycle ("V" or
+    "W") and mg_smoother ("block_jacobi" or "schwarz") configure the MG
+    hierarchy (build_shell_mg), as femo_alpha_tpu's ShellBench takes
+    them."""
 
-    def __init__(self, nx=128, ny=32, penalty=False, device=None):
+    def __init__(self, nx=128, ny=32, penalty=False, device=None,
+                 mg_cycle="V", mg_smoother="block_jacobi"):
         from .mesh import createRectangleMesh
         from .models import RMShellModel
 
@@ -91,7 +95,9 @@ class LibraryBench:
                                    gdim=3)
         self.model = RMShellModel(mesh, shell_bc_func=_clamped_x0,
                                   element_wise_material=True,
-                                  PENALTY_BC=penalty, device=self.device)
+                                  PENALTY_BC=penalty, device=self.device,
+                                  mg_opts={"cycle": mg_cycle,
+                                           "smoother": mg_smoother})
         self.pde = self.model.fea.states["disp_solid"].pde
         self.n_dofs = self.model.shell_pde.W.n_dofs
         nel, nn = mesh.n_cells, mesh.n_nodes

@@ -53,11 +53,13 @@ def can_coarsen(nx, ny, coarsest_cells=256):
 
 
 def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
-                   lmin_ratio=0.06, asm_chunk=8192, device=None):
+                   lmin_ratio=0.06, asm_chunk=8192, device=None, cycle="V",
+                   smoother="block_jacobi"):
     """GeometricMG (f64) for an RMShellPDE on a StructuredQuadMesh, or None
     when the mesh cannot be coarsened at least once (odd dims / already
     small). device: where the levels live (the solve's device); None means
-    the CUDA card."""
+    the CUDA card. cycle ("V" or "W") and smoother ("block_jacobi" or
+    "schwarz") go to the GeometricMG."""
     from ...mesh import StructuredQuadMesh
     from .pde import RMShellPDE
 
@@ -126,7 +128,7 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
         pde_k, free_k = build_level(nx_k, ny_k)
 
     return GeometricMG(levels, make_constrained_matvec_T, degree=degree,
-                       lmin_ratio=lmin_ratio)
+                       lmin_ratio=lmin_ratio, cycle=cycle, smoother=smoother)
 
 
 class ShellMGPrecond:

@@ -17,10 +17,18 @@ and are reordered to the FE order inside.
 The solve, by configuration (as the reference chooses it):
 - n_dofs <= 6000: a dense f64 Cholesky of the constrained matrix;
 - strong BCs (PENALTY_BC=False) on a structured mesh with a multigrid
-  hierarchy: PCG preconditioned by the geometric-MG V-cycle;
+  hierarchy: PCG preconditioned by the geometric-MG V-cycle (`mg_opts`:
+  extra keywords of build_shell_mg, e.g. {"cycle": "W", "smoother":
+  "schwarz"});
 - otherwise — penalty BCs (the default) or an unstructured mesh: PCG
   preconditioned by the f64 band Cholesky of the RCM-ordered system
   (solvers/band.py), factored once per design and reused by the adjoint;
+  past the band memory guard (FEMO_BAND_MEM_GB, default 6 GB of the
+  reference's estimate) by the aggregation AMG with its penalty split
+  (solvers/amg.py::AMGPrecondFactory), set up once per design and reused
+  by the adjoint. The reference wraps the band setup and the AMG's
+  construction in catch-alls that fall back to the AMG or to point-Jacobi
+  CG; the port does not: an error there raises;
 - custom `solver_opts`: used verbatim by the LinearSolver (e.g.
   {"method": "gmres", "pc": "jacobi"}), as the reference uses them.
 Every operator application goes through the fused constrained operator
@@ -49,11 +57,9 @@ geometry.
 
 Not ported yet (ROADMAP.md, Queue 1), raising NotImplementedError before
 the device is looked at: composite laminates, nodal (CG1) material fields,
-other element types and dtypes. Past the band memory guard the reference
-falls back to an
-aggregation AMG, which is not ported either: that raises too. The model
-runs on the CUDA card unless `device` names another; without a card and
-without `device` it raises (pass device="cpu" for the CPU).
+other element types and dtypes. The model runs on the CUDA card unless
+`device` names another; without a card and without `device` it raises
+(pass device="cpu" for the CPU).
 """
 
 from __future__ import annotations
@@ -73,6 +79,7 @@ from ...assembly.assemble import (
 from ...device import resolve_device, tensor_on
 from ...fea import FEA, FEAModel
 from ...fea.model import VariableGroup
+from ...solvers.amg import AMGPrecondFactory
 from ...solvers.band import band_precond_factory
 from ...solvers.direct import dense_from_elements
 from ...solvers.eigen import dense_generalized_eigh, lobpcg
@@ -118,7 +125,8 @@ class RMShellModel:
                  rho=100, PENALTY_BC=True, mesh_tags=None, record=False,
                  elementwise_pressure=False, element_type="CG2CG1",
                  solver_opts=None, inplane_deg=4, shear_deg=4,
-                 composite_clt=None, device=None, dtype=torch.float64):
+                 composite_clt=None, device=None, dtype=torch.float64,
+                 mg_opts=None):
         if shell_bc_func is None:
             raise ValueError(
                 "Please provide the shell bc location function.\n"
@@ -135,6 +143,7 @@ class RMShellModel:
         self.mesh_tags = mesh_tags
         self.record = record
         self.solver_opts = solver_opts
+        self.mg_opts = dict(mg_opts or {})
         self.shell_bc_func = shell_bc_func
         self.element_wise_material = element_wise_material
         self.m, self.rho = 1e-6, rho
@@ -178,7 +187,8 @@ class RMShellModel:
             return {"method": "dense"}
         opts = {"method": "cg", "tol": 1e-11, "maxiter": 20 * int(n ** 0.5)}
         if not self.PENALTY_BC and getattr(self.mesh, "structured", False):
-            mg = build_shell_mg(pde, self.shell_bc_func, device=self.device)
+            mg = build_shell_mg(pde, self.shell_bc_func, device=self.device,
+                                **self.mg_opts)
             if mg is not None:
                 self.mg = mg
                 opts["precond_factory"] = ShellMGPrecond(mg)
@@ -190,13 +200,17 @@ class RMShellModel:
         bf = band_precond_factory(pde.W, residual_form, facet_forms,
                                   free_mask=free)
         # the reference's memory guard (FEMO_BAND_MEM_GB, default 6): past
-        # it, it falls back to an aggregation AMG
+        # it, the nullspace-aggregation AMG + penalty diagonal split
         cap = float(os.environ.get("FEMO_BAND_MEM_GB", "6")) * 1e9
         mem = bf.band.mem_bytes_reference()
+        self.band_estimate_gb = mem / 1e9
         if mem > cap:
-            raise _not_ported(
-                f"the AMG fallback past the band memory guard (the band "
-                f"needs ~{mem / 1e9:.1f} GB > {cap / 1e9:.0f} GB)")
+            opts["precond_factory"] = AMGPrecondFactory(
+                pde.W, residual_form, facet_forms, free_mask=free)
+            log(f"band precond needs ~{mem / 1e9:.1f}GB (> "
+                f"{cap / 1e9:.0f}GB guard); using aggregation-AMG fallback "
+                "(expect more iterations than band on thin shells)")
+            return opts
         self.band = bf.band
         opts["precond_factory"] = bf
         return opts

@@ -1,6 +1,7 @@
-"""Setup-time mesh topology for generic meshes (host numpy): the numpy path
-of femo_alpha_tpu/native/topology.py::build_edges (identical semantics),
-and its reverse Cuthill-McKee ordering written out in Python."""
+"""Setup-time mesh topology for generic meshes (host numpy): the numpy paths
+of femo_alpha_tpu/native/topology.py::build_edges and ::build_csr_pattern
+(identical semantics), and its reverse Cuthill-McKee ordering written out
+in Python."""
 
 from __future__ import annotations
 
@@ -28,6 +29,25 @@ def build_edges(conn, local_edges):
         inv.reshape(nc, n_le).astype(np.int32),
         counts.astype(np.int32),
     )
+
+
+def build_csr_pattern(dofmap, n_dofs):
+    """(order, seg, rows, cols) of the CSR pattern of the dofmap product
+    graph, as the reference's native build_csr_pattern returns them: the
+    flat entries c*nd*nd + i*nd + j of the element matrices sorted by
+    (row, col) key, ties in entry order (order); the distinct (row, col)
+    slot of each sorted entry (seg); and the distinct pairs, row-major
+    (rows, cols). All int32."""
+    dofmap = np.ascontiguousarray(dofmap, dtype=np.int32)
+    nd = dofmap.shape[1]
+    rows = np.repeat(dofmap, nd, axis=1).reshape(-1)
+    cols = np.tile(dofmap, (1, nd)).reshape(-1)
+    key = rows.astype(np.int64) * n_dofs + cols
+    order = np.argsort(key, kind="stable")
+    uniq, seg = np.unique(key[order], return_inverse=True)
+    return (order.astype(np.int32), seg.astype(np.int32),
+            (uniq // n_dofs).astype(np.int32),
+            (uniq % n_dofs).astype(np.int32))
 
 
 def rcm_order(edges, n_nodes):

@@ -1,6 +1,7 @@
-"""Krylov solvers, Newton, preconditioners, geometric multigrid and the
-linear-solver facade."""
+"""Krylov solvers, Newton, preconditioners, geometric multigrid, the
+aggregation AMG and the linear-solver facade."""
 
+from .amg import AggregationAMG, AMGPrecondFactory
 from .krylov import cg_solve, gmres_solve
 from .linear import LinearSolver
 from .multigrid import GeometricMG
@@ -11,6 +12,7 @@ from .precond import (
     mixed_block_jacobi,
 )
 
-__all__ = ["cg_solve", "gmres_solve", "LinearSolver", "GeometricMG",
-           "newton_solve", "jacobi_preconditioner", "mixed_block_jacobi",
+__all__ = ["AggregationAMG", "AMGPrecondFactory", "cg_solve", "gmres_solve",
+           "LinearSolver", "GeometricMG", "newton_solve",
+           "jacobi_preconditioner", "mixed_block_jacobi",
            "block_jacobi_preconditioner"]

@@ -1,21 +1,26 @@
 """Geometric multigrid preconditioner on structured mesh hierarchies.
 
-Port of femo_alpha_tpu/solvers/multigrid.py (V-cycle, node-block-Jacobi
-Chebyshev smoothing, lane-major level operators, Jacobi-scaled dense
-coarse inverse):
+Port of femo_alpha_tpu/solvers/multigrid.py (V- and W-cycles,
+node-block-Jacobi or additive-Schwarz Chebyshev smoothing, lane-major
+level operators, Jacobi-scaled dense coarse inverse):
 
-- transfers are separable factor-2 stencils on the combined dof grid;
-  restriction is written as the explicit adjoint stencil of prolongation
-  (strided slices + shifted adds), not derived by autograd
-- the smoother is Chebyshev over a block-Jacobi split, targeting
-  [lmin_ratio*lmax, lmax] with lmax from a CG-Lanczos estimate
+- transfers on nested StructuredQuadMesh pairs are separable factor-2
+  stencils on the combined dof grid, restriction written as the explicit
+  adjoint stencil of prolongation (strided slices + shifted adds), not
+  derived by autograd; any other nested pair takes the generic
+  index-table `Transfer` (coarse basis weights at the fine dofs), whose
+  restriction sums in a fixed order
+- the smoother is Chebyshev over a block-Jacobi or a weighted
+  additive-Schwarz split, targeting [lmin_ratio*lmax, lmax] with lmax from
+  a CG-Lanczos estimate; the Schwarz apply's per-cell contraction is K1
+  (cuda_kernels.cell_matvec_T) on the card
 - the coarsest level is solved with a Jacobi-scaled dense inverse
-- the setup's assemblies (block-Jacobi blocks, coarse matrix) sum in a
-  fixed order, never with atomics, so one design always gives the same
-  V-cycle bits
+- the setup's assemblies (smoother blocks, assembled diagonals, overlap
+  counts, coarse matrix) sum in a fixed order, never with atomics, so one
+  design always gives the same cycle bits
 
-The W-cycle, the Schwarz smoother, the cell-major layout and the generic
-(index-table) transfer are not ported yet (ROADMAP.md).
+The cell-major layout is not ported (ROADMAP.md): every level is
+lane-major.
 """
 
 from __future__ import annotations
@@ -23,12 +28,55 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..assembly.cuda_kernels import cell_matvec_T, gather_sum
 from ..spaces.fixed_order import fixed_order_scatter, sum_plan
 
 
 # --------------------------------------------------------------------------
 # transfer operators
 # --------------------------------------------------------------------------
+
+
+class Transfer:
+    """Prolongation/restriction between one (sub)space pair on nested
+    meshes from index tables: dofs (nf, ndc), the coarse scalar dofs of
+    each fine scalar dof, and weights (nf, ndc), the coarse basis at the
+    fine dof's coordinate. Vector spaces share the scalar tables; the
+    components ride the last axis. Tables go to each vector's device once;
+    restriction, the exact transpose of prolongation, sums each coarse dof's
+    entries in a fixed order (spaces/fixed_order.py)."""
+
+    def __init__(self, dofs, weights, n_scalar_coarse, value_size):
+        self.dofs = np.asarray(dofs, dtype=np.int64)
+        self.weights = np.asarray(weights, dtype=np.float64)
+        self.n_scalar_coarse = int(n_scalar_coarse)
+        self.vs = int(value_size)
+        self._index_cache = {}
+
+    def _tables(self, device):
+        key = ("tables", str(device))
+        t = self._index_cache.get(key)
+        if t is None:
+            t = self._index_cache[key] = (
+                torch.as_tensor(self.dofs.reshape(-1), device=device),
+                torch.as_tensor(self.weights, device=device))
+        return t
+
+    def prolong(self, xc):
+        dofs, w = self._tables(xc.device)
+        g = xc.reshape(self.n_scalar_coarse, self.vs)[dofs].reshape(
+            self.dofs.shape + (self.vs,))  # (nf, ndc, vs)
+        return torch.sum(w.to(xc.dtype)[:, :, None] * g, dim=1).reshape(-1)
+
+    def restrict(self, rf):
+        nf, ndc = self.dofs.shape
+        _, w = self._tables(rf.device)
+        contrib = (w.to(rf.dtype)[:, :, None]
+                   * rf.reshape(nf, self.vs)[:, None, :]).reshape(
+                       nf * ndc, self.vs)
+        plan = sum_plan(self, "restrict", self.dofs, rf.device)
+        return fixed_order_scatter(contrib, plan,
+                                   self.n_scalar_coarse).reshape(-1)
 
 
 def _sl(G, axis, start, stop=None, stride=1):
@@ -105,20 +153,26 @@ def _prolong_axis(G, axis, degree):
                      dim=axis)
 
 
+def _structured_pair(space_c, space_f):
+    """Whether StructuredTransfer applies: P1/P2 spaces on nested
+    StructuredQuadMesh pairs refined by a factor of 2."""
+    mc, mf = space_c.mesh, space_f.mesh
+    return bool(getattr(mc, "structured", False)
+                and getattr(mf, "structured", False)
+                and space_c.family in ("P", "CG", "Lagrange", "Q")
+                and space_c.degree in (1, 2)
+                and mf.nx == 2 * mc.nx and mf.ny == 2 * mc.ny)
+
+
 class StructuredTransfer:
     """Slice-based transfer for P1/P2 spaces on nested StructuredQuadMesh
     pairs (factor-2 refinement)."""
 
     def __init__(self, space_c, space_f):
         mc, mf = space_c.mesh, space_f.mesh
-        if not (getattr(mc, "structured", False)
-                and getattr(mf, "structured", False)
-                and space_c.family in ("P", "CG", "Lagrange", "Q")
-                and space_c.degree in (1, 2)
-                and mf.nx == 2 * mc.nx and mf.ny == 2 * mc.ny):
-            raise NotImplementedError(
-                "the generic (unstructured) MG transfer is not ported to "
-                "femo_alpha_tpu_torch yet (ROADMAP.md)")
+        if not _structured_pair(space_c, space_f):
+            raise ValueError("StructuredTransfer needs P1/P2 spaces on "
+                             "nested structured meshes (factor 2)")
         self.vs = space_c.value_size
         self.degree = space_c.degree
         self.nxc, self.nyc = mc.nx, mc.ny
@@ -161,11 +215,47 @@ class StructuredTransfer:
         return self._unpack(G)
 
 
+def make_space_transfer(space_c, space_f):
+    """The slice-based transfer where it applies, the generic index-table
+    one otherwise."""
+    if _structured_pair(space_c, space_f):
+        return StructuredTransfer(space_c, space_f)
+    return space_transfer(space_c, space_f)
+
+
+def _structured_locate(mesh_c, pts):
+    """Containing coarse cell and local reference coordinates of points on
+    a StructuredQuadMesh (host numpy)."""
+    xy = np.asarray(pts)[:, :2]
+    c = np.asarray(mesh_c.coords)[:, :2]
+    x0, y0 = c[:, 0].min(), c[:, 1].min()
+    hx = (c[:, 0].max() - x0) / mesh_c.nx
+    hy = (c[:, 1].max() - y0) / mesh_c.ny
+    fi = (xy[:, 0] - x0) / hx
+    fj = (xy[:, 1] - y0) / hy
+    i = np.clip(np.floor(fi).astype(np.int64), 0, mesh_c.nx - 1)
+    j = np.clip(np.floor(fj).astype(np.int64), 0, mesh_c.ny - 1)
+    xi = np.stack([fi - i, fj - j], axis=1)
+    cells = (i * mesh_c.ny + j).astype(np.int32)
+    return cells, xi
+
+
+def space_transfer(space_c, space_f):
+    """The generic Transfer for one FunctionSpace pair on nested structured
+    quad meshes (the coarse space nested in the fine one: same family, mesh
+    refined by integer factors), so that prolongation is exact
+    interpolation and restriction its transpose."""
+    cells, xi = _structured_locate(space_c.mesh, space_f.dof_coords)
+    w = space_c.element.tabulate(xi, 0)  # (nf, ndc)
+    dofs = space_c.scalar_dofmap[cells]  # (nf, ndc)
+    return Transfer(dofs, w, space_c.n_scalar_dofs, space_f.value_size)
+
+
 class MixedTransfer:
     """Per-subspace transfers for a MixedSpace pair."""
 
     def __init__(self, W_c, W_f):
-        self.subs = [StructuredTransfer(sc, sf)
+        self.subs = [make_space_transfer(sc, sf)
                      for sc, sf in zip(W_c.subspaces, W_f.subspaces)]
         self.W_c, self.W_f = W_c, W_f
 
@@ -254,6 +344,63 @@ def apply_block_jacobi_T(W, Dinv_Ts, v):
         yT = torch.sum(Dinv_Ts[i] * segT[None, :, :], dim=1)  # (bs, ns)
         parts.append(yT.T.reshape(-1))
     return torch.cat(parts)
+
+
+def schwarz_arrays(Ae, W, free):
+    """Weighted additive-Schwarz smoother over diagonal-corrected element
+    blocks, from cell-major element matrices (nc, nd, nd): each cell's
+    block is its element matrix with the diagonal replaced by the ASSEMBLED
+    diagonal (a bare element matrix is singular: rigid-body modes), BC
+    rows/cols eliminated, inverted in batch. The apply is
+    M v = sum_e R_e^T sqrt(w) Ahat_e^{-1} sqrt(w) R_e v with w = 1/overlap
+    count, symmetric PSD by construction. The assembled diagonal and the
+    overlap counts sum in a fixed order (the space's scatter_add).
+    Returns (inv (nc, nd, nd), sqrt_w_cell (nc, nd))."""
+    nc, nd, _ = Ae.shape
+    dtype, dev = Ae.dtype, Ae.device
+    fm = W.gather(free.to(dtype))  # (nc, nd)
+    diag_g = W.scatter_add(torch.diagonal(Ae, dim1=1, dim2=2))
+    eye = torch.eye(nd, dtype=dtype, device=dev)
+    dcell = W.gather(diag_g)  # assembled diagonal per cell dof
+    Ahat = Ae * (1.0 - eye) + eye * dcell[:, :, None]
+    Ahat = Ahat * fm[:, :, None] * fm[:, None, :] + eye * (
+        1.0 - fm)[:, :, None]
+    counts = W.scatter_add(torch.ones((nc, nd), dtype=dtype, device=dev))
+    w = torch.where(counts > 0, 1.0 / counts, torch.ones_like(counts))
+    sqrt_w_cell = torch.sqrt(W.gather(w))
+    return torch.linalg.inv(Ahat), sqrt_w_cell
+
+
+def schwarz_arrays_T(Ae_T, W, free):
+    """schwarz_arrays from lane-major element matrices (nd, nd, nc), in the
+    lane-major layout apply_schwarz_T takes: (inv_T (nd, nd, nc),
+    sqrt_w_T (nd, nc)), contiguous and detached (K1's input contract)."""
+    with torch.no_grad():
+        inv, sw = schwarz_arrays(Ae_T.permute(2, 0, 1), W, free)
+        return inv.permute(1, 2, 0).contiguous(), sw.T.contiguous()
+
+
+def _schwarz_tables(W, device):
+    """(dofmap_T (nd, nc), inv (n, w)) of W's lane tables as int64 on
+    `device`, cached on the space: one gather of a vector's cell values and
+    the fixed-order dof sums of gather_sum."""
+    key = ("schwarz", str(device))
+    t = W._index_cache.get(key)
+    if t is None:
+        t = W._index_cache[key] = tuple(
+            a.long() for a in W.lane_tables(device))
+    return t
+
+
+def apply_schwarz_T(W, inv_T, sqrt_w_T, v):
+    """Lane-major Schwarz apply: inv_T (nd, nd, nc), sqrt_w_T (nd, nc).
+    One gather of the cell values (the space's lane tables), the per-cell
+    contraction by K1 (cuda_kernels.cell_matvec_T: the kernel on a CUDA
+    tensor, its plain twin on a CPU one), and each dof's sum over its cell
+    entries in the tables' fixed order (cuda_kernels.gather_sum)."""
+    dofmap_T, inv = _schwarz_tables(W, v.device)
+    vcT = v[dofmap_T] * sqrt_w_T
+    return gather_sum(cell_matvec_T(inv_T, vcT) * sqrt_w_T, inv)
 
 
 def estimate_lmax(matvec, Minv, n, dtype, device, iters=25):
@@ -346,7 +493,7 @@ def dense_constrained(Ae, W, free):
 
 
 class GeometricMG:
-    """V-cycle preconditioner over a list of levels (fine -> coarse).
+    """V- or W-cycle preconditioner over a list of levels (fine -> coarse).
 
     Static structure (spaces, transfers, free masks, matvec factory) lives
     on the object; per-design data (element matrices, block inverses,
@@ -359,10 +506,26 @@ class GeometricMG:
       coarsen  — callable(params) -> params of the next level (absent on
                  the coarsest level)
     make_matvec(Ae, space, free) -> constrained lane-major operator.
+
+    cycle: "V", or "W" (two recursive corrections per level,
+    B2 = 2B - BAB, symmetric when B is: it holds the two-grid rate where
+    V-cycle rates degrade with the level count, at about twice the coarse
+    levels' smoothing cost). smoother: "block_jacobi" (per-node vs x vs
+    blocks) or "schwarz" (weighted additive Schwarz over
+    diagonal-corrected element blocks: stronger on shells, one inverted
+    element matrix per cell of extra memory). degree: the Chebyshev degree,
+    an int or a per-level sequence (fine -> coarse; a shorter sequence
+    repeats its last entry).
     """
 
     def __init__(self, levels, make_matvec, degree=2, lmin_ratio=0.25,
-                 power_iters=25, max_coarse_dofs=30_000):
+                 power_iters=25, max_coarse_dofs=30_000, cycle="V",
+                 smoother="block_jacobi"):
+        if cycle not in ("V", "W"):
+            raise ValueError(f"GeometricMG: cycle {cycle!r} (V or W)")
+        if smoother not in ("block_jacobi", "schwarz"):
+            raise ValueError(f"GeometricMG: smoother {smoother!r} "
+                             "(block_jacobi or schwarz)")
         n_coarse = int(levels[-1]["space"].n_dofs)
         if n_coarse > max_coarse_dofs:
             raise ValueError(
@@ -375,6 +538,8 @@ class GeometricMG:
         self.degree = degree
         self.lmin_ratio = lmin_ratio
         self.power_iters = power_iters
+        self.cycle = cycle
+        self.smoother = smoother
         self.transfers = [MixedTransfer(levels[k + 1]["space"],
                                         levels[k]["space"])
                           for k in range(len(levels) - 1)]
@@ -397,13 +562,12 @@ class GeometricMG:
             free_k = lev["free"]
             W = lev["space"]
             if k < len(self.levels) - 1:
-                Dinvs = block_jacobi_arrays(Ae.permute(2, 0, 1), W, free_k)
-                sm = [D.permute(1, 2, 0).contiguous() for D in Dinvs]
+                sm = self._smoother_arrays(Ae, W, free_k)
                 state["blocks"].append(sm)
                 mv = self.make_matvec(Ae, W, free_k)
                 state["matvec"].append(mv)
                 state["lmax"].append(estimate_lmax(
-                    mv, lambda v, W=W, sm=sm: apply_block_jacobi_T(W, sm, v),
+                    mv, lambda v, W=W, sm=sm: self._smoother_apply(W, sm, v),
                     int(W.n_dofs), Ae.dtype, Ae.device,
                     iters=self.power_iters))
                 p = lev["coarsen"](p)
@@ -415,9 +579,28 @@ class GeometricMG:
                 state["coarse_scale"] = s
         return state
 
+    def _smoother_arrays(self, Ae, W, free):
+        """Lane-major smoother state of a level from its lane-major Ae."""
+        if self.smoother == "schwarz":
+            return schwarz_arrays_T(Ae, W, free)
+        Dinvs = block_jacobi_arrays(Ae.permute(2, 0, 1), W, free)
+        return [D.permute(1, 2, 0).contiguous() for D in Dinvs]
+
+    def _smoother_apply(self, W, sm, v):
+        if self.smoother == "schwarz":
+            return apply_schwarz_T(W, sm[0], sm[1], v)
+        return apply_block_jacobi_T(W, sm, v)
+
+    def _degree_at(self, k):
+        """The Chebyshev degree of level k (`degree` an int, or a per-level
+        sequence whose last entry repeats)."""
+        if isinstance(self.degree, (list, tuple)):
+            return self.degree[min(k, len(self.degree) - 1)]
+        return self.degree
+
     # ----------------------------------------------------------- apply
     def apply(self, state, b):
-        """One V-cycle from a zero initial guess: the M^{-1} of PCG."""
+        """One cycle from a zero initial guess: the M^{-1} of PCG."""
         return self._cycle(state, 0, b)
 
     def _cycle(self, state, k, b):
@@ -432,14 +615,18 @@ class GeometricMG:
         lmax = state["lmax"][k]
 
         def Minv(v):
-            return apply_block_jacobi_T(W, sm, v)
+            return self._smoother_apply(W, sm, v)
 
+        deg = self._degree_at(k)
         x = chebyshev_smooth(mv, Minv, lmax, b, torch.zeros_like(b),
-                             degree=self.degree, lmin_ratio=self.lmin_ratio)
+                             degree=deg, lmin_ratio=self.lmin_ratio)
         t = self.transfers[k]
         free_c = self.levels[k + 1]["free"]
         r_c = t.restrict(b - mv(x)) * free_c
         e_c = self._cycle(state, k + 1, r_c)
+        if self.cycle == "W" and k + 1 < len(self.levels) - 1:
+            mv_c = state["matvec"][k + 1]
+            e_c = e_c + self._cycle(state, k + 1, r_c - mv_c(e_c))
         x = x + free * t.prolong(e_c)
-        return chebyshev_smooth(mv, Minv, lmax, b, x, degree=self.degree,
+        return chebyshev_smooth(mv, Minv, lmax, b, x, degree=deg,
                                 lmin_ratio=self.lmin_ratio)

@@ -50,3 +50,18 @@ def fixed_order_scatter(vals, plan, size):
     for k in range(1, inv.shape[0]):
         acc = acc + terms[k]
     return vals.new_zeros((size,) + vals.shape[1:]).index_put((uniq,), acc)
+
+
+def fixed_order_reduce(vals, plan, size, dim=0):
+    """fixed_order_scatter along `dim` of vals for plans many rows deep
+    (an aggregate's dofs, a coarse entry's cells): one gather and one
+    PyTorch sum over the plan's rows instead of one add per row. The sum
+    runs without atomics, so the same inputs give the same bits on the
+    card; its order is PyTorch's, not source order, so on the CPU it may
+    differ from index_add_ in the last bits."""
+    uniq, inv = plan
+    vals = vals.movedim(dim, 0)
+    src = torch.cat([vals, vals.new_zeros((1,) + vals.shape[1:])])
+    acc = src[inv].sum(0)
+    out = vals.new_zeros((size,) + vals.shape[1:]).index_put((uniq,), acc)
+    return out.movedim(0, dim)

@@ -13,7 +13,8 @@ OptimizationProblem and the csdl operations on the card by default; the
 PAV wing's evaluate and stress backward bit for bit from one fresh model
 to the next, and the indexed gathers' backward bit for bit; a moved
 plate's evaluate and shape backward on the card against the CPU and bit
-for bit. They skip without a card. The
+for bit; the AMG's Schwarz apply through K1 against the twin, and AMG
+setups and applies bit for bit. They skip without a card. The
 file imports no jax, so on a machine without the JAX package it runs on
 its own:
 
@@ -633,3 +634,69 @@ def test_quality_abs_matvec_k1_matches_twin(plate_bench):
         yp = W.scatter_add_T(ck.cell_matvec_T_plain(
             ops[0].abs(), W.gather_T(u.abs()).contiguous()))
     assert _rel(y, yp) <= 1e-14
+
+
+def _amg_wing(dev):
+    """The penalty wing of tests/test_torch_amg.py (10x24, ribs at 12,
+    shuffle 3, 7,431 dofs) on `dev` with the reference's AMG + penalty
+    split on its operator: (AMGPrecondFactory, its state, the cell block
+    (nd, nd, nc))."""
+    from femo_alpha_tpu_torch.mesh import createWingShellMesh
+    from femo_alpha_tpu_torch.solvers.amg import AMGPrecondFactory
+
+    mesh = createWingShellMesh(n_chord=10, n_span=24, rib_stations=(12,),
+                               shuffle_seed=3)
+    pde = RMShellPDE(mesh, element_wise_material=True, device=dev)
+    form = pde.make_residual_form()
+    ff = pde.make_penalty_facet_form(lambda x: x[:, 1] < 1e-9)
+    pc = AMGPrecondFactory(pde.W, form, [ff])
+    kw = dict(dtype=torch.float64, device=dev)
+    nel, nn = mesh.n_cells, mesh.n_nodes
+    p = {"thickness": torch.full((nel,), 0.2, **kw),
+         "E": torch.full((nel,), 4.32e8, **kw),
+         "nu": torch.zeros(nel, **kw), "uhat": torch.zeros(3 * nn, **kw),
+         "F_solid": torch.zeros(3 * nn, **kw)}
+    u0 = torch.zeros(pde.W.n_dofs, **kw)
+    from femo_alpha_tpu_torch.assembly.assemble import element_matrices
+
+    Ae = element_matrices(form, u0, p).permute(1, 2, 0).contiguous()
+    ops = [Ae, ff.element_ops(u0, p)]
+    return pc, pc.setup_state(u0, p, ops, ()), Ae
+
+
+def test_schwarz_apply_k1_matches_twin(cuda):
+    """The AMG's Schwarz smoother apply (apply_schwarz_T: K1 on the
+    inverted, diagonal-corrected element blocks at nd 39) on the card
+    against the plain twin on the same blocks, within 1e-13; it launches
+    K1 once."""
+    from femo_alpha_tpu_torch.solvers.multigrid import apply_schwarz_T
+
+    pc, st, _ = _amg_wing("cuda")
+    inv_T, sw_T = st["amg"]["sm"]
+    W = pc.amg.space
+    v = torch.randn(W.n_dofs, generator=cuda, device="cuda",
+                    dtype=torch.float64)
+    ck.reset_launch_counts()
+    y = apply_schwarz_T(W, inv_T, sw_T, v)
+    assert ck.launch_counts()["cell_matvec_T"] == 1
+    vcT = W.gather_T(v) * sw_T
+    y_plain = W.scatter_add_T(ck.cell_matvec_T_plain(inv_T, vcT) * sw_T)
+    assert _rel(y, y_plain) <= 1e-13
+
+
+def test_amg_setup_and_apply_are_bitwise_repeatable(cuda):
+    """Two AMG setups of one operator give the same bits (Schwarz blocks,
+    lambda_max, coarse inverse: every sum in a fixed order), two applies
+    the same bits, and the apply matches the CPU's within 1e-10."""
+    pc, s1, _ = _amg_wing("cuda")
+    _, s2, _ = _amg_wing("cuda")
+    for k in ("lmax", "coarse_inv", "coarse_scale"):
+        assert torch.equal(s1["amg"][k], s2["amg"][k]), k
+    assert torch.equal(s1["amg"]["sm"][0], s2["amg"]["sm"][0])
+    v = torch.randn(pc.amg.space.n_dofs, generator=cuda, device="cuda",
+                    dtype=torch.float64)
+    y1 = pc.apply_state(s1, v)
+    assert torch.equal(y1, pc.apply_state(s1, v))
+    assert torch.equal(y1, pc.apply_state(s2, v))
+    pc_c, s_c, _ = _amg_wing("cpu")
+    assert _rel(y1.cpu(), pc_c.apply_state(s_c, v.cpu())) <= 1e-10

@@ -1,6 +1,7 @@
 """femo_alpha_tpu_torch imports torch and never jax; its kernel module
 imports without nvcc or a GPU and dispatches on each tensor's device; the
-configurations it has not ported raise NotImplementedError."""
+configurations it has not ported raise NotImplementedError, and past the
+band memory guard the model selects the aggregation AMG."""
 
 import os
 import pkgutil
@@ -40,7 +41,8 @@ def test_every_module_imports_without_jax():
               "models.rm_shell.buckling", "utils.quality", "benchmarks",
               "bench", "config", "io.xdmf", "io.recorder", "models.poisson",
               "models.elasticity", "models.beam", "solvers.newton",
-              "solvers.precond"):
+              "solvers.precond", "solvers.amg", "assembly.sparse",
+              "native.topology"):
         assert "femo_alpha_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -98,9 +100,13 @@ def test_kernel_wrappers_refuse_bad_input(case):
 @pytest.mark.parametrize("what", ["penalty", "unstructured", "dense",
                                   "composite", "nodal_material"])
 def test_unported_configurations_raise(what, monkeypatch):
-    """What each path still lacks: past the band memory guard (penalty BCs,
-    or strong BCs on an unstructured mesh) the reference's AMG fallback,
-    and the options below. On the dense path a solver of the caller's
+    """What each path still lacks: the options below (composite laminates,
+    nodal material). Past the band memory guard (penalty BCs, or strong
+    BCs on an unstructured mesh) the model selects the reference's
+    aggregation AMG (AMGPrecondFactory) and evaluates finite outputs; the
+    plate for these two cases is the smallest above the dense path's 6000
+    dofs (48x8, 6,270 dofs), since the AMG's CG takes ~500 iterations on
+    the CPU twins. On the dense path a solver of the caller's
     choice (solver_opts) is ported: the options reach the LinearSolver as
     given (Jacobi-GMRES(50) here, which stagnates on this shell as the
     reference's does, and stops after its maxiter // 50 cycles)."""
@@ -108,7 +114,8 @@ def test_unported_configurations_raise(what, monkeypatch):
     from femo_alpha_tpu_torch.models import RMShellModel
 
     structured = what != "unstructured"
-    nx, ny = (8, 2) if what == "dense" else (64, 16)
+    nx, ny = {"dense": (8, 2), "penalty": (48, 8),
+              "unstructured": (48, 8)}.get(what, (64, 16))
     mesh = createRectangleMesh(nx, ny, (0, 0), (10.0, 2.0), "quad", gdim=3,
                                structured=structured)
     kw = dict(shell_bc_func=lambda x: x[:, 0] < 1e-12,
@@ -120,18 +127,30 @@ def test_unported_configurations_raise(what, monkeypatch):
         kw["solver_opts"] = {"method": "gmres", "pc": "jacobi"}
     if what in ("penalty", "unstructured"):
         monkeypatch.setenv("FEMO_BAND_MEM_GB", "0.001")
-    if what == "dense":
+    if what in ("dense", "penalty", "unstructured"):
         model = RMShellModel(mesh, **kw)
         pde = model.fea.states["disp_solid"].pde
-        assert pde.solver_opts == {"method": "gmres", "pc": "jacobi",
-                                   "tol": 1e-12}
+        if what == "dense":
+            assert pde.solver_opts == {"method": "gmres", "pc": "jacobi",
+                                       "tol": 1e-12}
+        else:
+            from femo_alpha_tpu_torch.solvers.amg import AMGPrecondFactory
+
+            assert isinstance(pde._pc, AMGPrecondFactory)
+            assert pde.n_dofs > 6000
         nel, nn = mesh.n_cells, mesh.n_nodes
         f = np.zeros((nn, 3))
         f[:, 2] = 2.0
         out = model.evaluate(f, np.full(nel, 0.2), np.full(nel, 4.32e8),
                              np.zeros(nel), np.full(nel, 100.0))
         assert bool(torch.isfinite(out.disp_solid).all())
+        assert bool(torch.isfinite(out.compliance))
         info = pde.last_info["forward"]
+        if what != "dense":
+            # the cantilever's compliance anchor (chip_smoke.J_ANCHOR)
+            assert abs(float(out.compliance) / 4.387e-3 - 1.0) < 1e-3
+            assert 0 < info["iters"] < pde.solver_opts["maxiter"]
+            return
         assert info["cycles"] == max(2, min(max(500, 10 * pde.n_dofs),
                                             200_000) // 50)
         return
