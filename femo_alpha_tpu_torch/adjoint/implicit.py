@@ -15,9 +15,15 @@ Facet forms (penalty BCs) add their residual, and their element matrices
 enter the operator as one more block. For linear problems the facet
 Jacobian depends on the geometry parameters only (uhat), so it is
 assembled once per uhat value and reused (`_prepare_facet_ops`).
-`extra_residual(u, params)` adds a load term that does not depend on u
-(the force vector of the force-to-pressure map, the beam's tip load): it
-enters the residual and its parameter gradients, not the operator.
+`extra_residual(u, params)` adds a non-form term to the residual (the
+force vector of the force-to-pressure map, the beam's tip load, or a term
+in u such as a reaction c*u): it enters the residual and its parameter
+gradients, and its linearization at the current u (`torch.func.jvp`)
+enters the operator as LinearSolver's `extra_matvec`, for the forward
+solve, every Newton step and the adjoint solve, as the reference's
+`jax.linearize` does. A term whose linearization is identically zero (a
+load) leaves the operator as it is: one jvp probe per linearization
+decides (`_extra_linearization`).
 
 Nonlinear problems take `newton_iters` > 1: a fixed-trip Newton loop
 (each step linearizes at the current u and solves), then one more
@@ -111,7 +117,29 @@ class ImplicitPDE:
             facet_ops = [ff.element_ops(u, params) for ff in self.facet_forms]
         return ops + list(facet_ops)
 
-    def _solver_from(self, ops_Ae, M_state):
+    def _extra_linearization(self, u, params):
+        """v -> d extra_residual(u, params)[v] (torch.func.jvp at u), or
+        None without an extra residual or when one probe in a fixed
+        non-uniform direction gives exactly zero (a load that does not
+        depend on u)."""
+        if self.extra_residual is None:
+            return None
+        params = {k: v.detach() for k, v in params.items()}
+        u = u.detach()
+
+        def fn(w):
+            return self.extra_residual(w, params)
+
+        def lin(v):
+            return torch.func.jvp(fn, (u,), (v,))[1]
+
+        probe = torch.linspace(1.0, 2.0, self.n_dofs, dtype=u.dtype,
+                               device=u.device)
+        if not bool(torch.any(lin(probe) != 0.0)):
+            return None
+        return lin
+
+    def _solver_from(self, ops_Ae, M_state, u, params):
         M = None
         if self._pf is not None:
             M = M_state
@@ -120,6 +148,7 @@ class ImplicitPDE:
                 return self._pc.apply_state(M_state, v)
         return LinearSolver(list(zip(ops_Ae, self._op_specs)), self.n_dofs,
                             free_mask=self.free_mask, M=M,
+                            extra_matvec=self._extra_linearization(u, params),
                             **self.solver_opts)
 
     def _prepare_facet_ops(self, params):
@@ -179,7 +208,7 @@ class ImplicitPDE:
         for _ in range(self.newton_iters):
             r = self.residual(u, params)
             ops_Ae, M_state = self._linearize(u, params, aux)
-            solver = self._solver_from(ops_Ae, M_state)
+            solver = self._solver_from(ops_Ae, M_state, u, params)
             u = u - solver.solve(r)
             infos.append(solver.last_info)
         self.last_info["forward"] = infos[-1]
@@ -196,11 +225,11 @@ class ImplicitPDE:
         with torch.no_grad():
             p = {k: v.detach() for k, v in params.items()}
             return self._solver_from(
-                *self._linearize(u, p, self._prepare_aux(p)))
+                *self._linearize(u, p, self._prepare_aux(p)), u, p)
 
     def _bwd_impl(self, params, u, ops_Ae, M_state, g, wrt):
         """-(dR/dp)^T lam for the parameters named in `wrt`."""
-        solver = self._solver_from(ops_Ae, M_state)
+        solver = self._solver_from(ops_Ae, M_state, u, params)
         lam = self.free_mask * solver.solve_transpose(self.free_mask * g)
         self.last_info["adjoint"] = solver.last_info
         if not wrt:

@@ -25,7 +25,6 @@ import numpy as np
 import torch
 
 from .assembly import cuda_kernels as ck
-from .assembly.affine import _affine_combine
 from .assembly.assemble import make_constrained_matvec_T
 from .device import resolve_device
 from .utils import quality
@@ -210,6 +209,17 @@ def planform_shape(coords, length=10.0, width=2.0, amplitude=0.1):
     return amplitude * s * (1.0 - s) * (2.0 * coords[:, 1] / width - 1.0)
 
 
+def nodal_thickness(coords, h0=0.2, length=10.0, width=2.0,
+                    amplitude=0.3):
+    """A smooth non-uniform nodal (CG1) thickness of the cantilever plate,
+    h = h0 (1 + amplitude sin(pi s) cos(pi y / W)), s = x / L: h0 at the
+    root and the tip, with a nonzero gradient (so the H1 regularization
+    of nodal thickness is not zero). numpy (n_nodes,)."""
+    s = coords[:, 0] / length
+    return h0 * (1.0 + amplitude * np.sin(np.pi * s)
+                 * np.cos(np.pi * coords[:, 1] / width))
+
+
 def planform_direction(coords, length=10.0, width=2.0):
     """A smooth unit in-plane (y) direction for shape finite differences,
     d = s cos(pi y / W) normalised, zero at the root. numpy (n_nodes,)."""
@@ -366,8 +376,7 @@ class TransientBench:
         sim = self.sim
         with torch.no_grad():
             ops = sim._operators(th)
-            Ae = _affine_combine(ops.BA, th, (1, 3))
-            abs_op = make_constrained_matvec_T(Ae.abs(), sim.W,
+            abs_op = make_constrained_matvec_T(ops.Ae.abs(), sim.W,
                                                sim.free_mask)
             w = torch.zeros(sim.fe_dofs, dtype=torch.float64,
                             device=self.device)

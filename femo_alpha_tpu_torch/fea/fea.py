@@ -74,9 +74,10 @@ class FEA:
                   extra_residual=None, newton_iters=None, solver_opts=None,
                   facet_forms=(), element_matrices_fn=None):
         """A state: residual_form over the state space (plus facet forms,
-        e.g. penalty BCs, and extra_residual(u, params), a load term that
-        does not depend on u); arguments: the input names the residual
-        reads; newton_iters: fixed Newton steps (1 for a linear problem)."""
+        e.g. penalty BCs, and extra_residual(u, params), a non-form term
+        such as a load or a reaction c*u, whose linearization in u enters
+        the operator); arguments: the input names the residual reads;
+        newton_iters: fixed Newton steps (1 for a linear problem)."""
         ni = newton_iters if newton_iters is not None else (
             1 if self.linear_problem else 3)
         self.states[name] = _State(residual_form, list(arguments),

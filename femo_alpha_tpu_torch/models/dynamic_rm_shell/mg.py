@@ -7,7 +7,9 @@ the nested structured hierarchy of models/rm_shell/mg.py with per-level
 step operators: each coarser level re-discretizes the step form
 (2/dt^2) inertia + elastic/2, whose element matrices are exactly
 h*M1 + h^3*M3 in the element-wise thickness, so each level re-assembles
-per design through its own affine basis (one K2 combine). Every level is
+per design through its own affine basis (one K2 combine); with nodal
+thickness each level assembles the step form directly per design (the
+reference's 2/dt^2 M + K/2 per level). Every level is
 lane-major and f64: each smoother step, residual and Lanczos matvec is one
 application of the fused constrained operator. The fine level's operator
 is the PlateSim's own (GeometricMG.setup(..., Ae0=...)).
@@ -66,7 +68,8 @@ def build_platesim_mg(sim, coarsest_cells=64, degree=6, lmin_ratio=0.06,
     def coarser_level(nx_k, ny_k):
         pde_k = RMShellPDE(
             StructuredQuadMesh(nx_k, ny_k, p0, p1, gdim=mesh.gdim),
-            element_wise_material=True, inplane_deg=sim.quad_deg,
+            element_wise_material=sim.element_wise_thickness,
+            inplane_deg=sim.quad_deg,
             shear_deg=sim.quad_deg, stress_deg=sim.quad_deg, device=dev)
         free_k, _ = combine_bcs(
             pde_k.W.n_dofs,
@@ -83,7 +86,10 @@ def build_platesim_mg(sim, coarsest_cells=64, degree=6, lmin_ratio=0.06,
                   "rho": torch.tensor(float(sim.rho), **t64)}
 
         def make_Ae(p):
-            return asm_k(None, {**consts, "thickness": p["thickness"]})
+            q = {**consts, "thickness": p["thickness"]}
+            if sim.element_wise_thickness:
+                return asm_k(None, q)
+            return asm_k.direct(None, q)
 
         return pde_k, {"space": pde_k.W, "free": free_k, "make_Ae": make_Ae}
 

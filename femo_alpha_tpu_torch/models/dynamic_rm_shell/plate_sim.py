@@ -14,23 +14,30 @@ A_c = free*A*free + (1 - free)*I.
 
 On the card: with element-wise thickness, K = h K1 + h^3 K3 and M = h M1
 exactly, so K, M and A are affine bases (A's built basis by basis from K's
-and M's once per dt), each combined by K2 once per design. Every K and M
-product is one fused-operator pass with free = ones (assembly/affine.py
-AffineApply: its design gradient is the closed-form vjp_theta), and every
-step solve is `_StepSolve`, an autograd Function over the configured
-solver — a dense Cholesky, Jacobi-PCG, or PCG preconditioned by a
-geometric-MG V-cycle (dynamic_rm_shell/mg.py) whose state is made once per
-simulate and reused by every step and by the adjoint. Autograd over the
-eager time loop then is the time-reversed adjoint sweep that `lax.scan`'s
-AD gives the JAX package; `simulate_outputs` checkpoints segments of the
-loop (torch.utils.checkpoint), so reverse-mode memory is O(sqrt(N_t) n).
+and M's once per dt), each combined by K2 once per design. With nodal
+(CG1) thickness, the default, K and M are not affine per cell: they are
+assembled directly (torch.func) once per design, as the reference's
+`_element_mats` does. Every K and M product is one fused-operator pass
+with free = ones (assembly/affine.py AffineApply, whose design gradient is
+the closed-form vjp_theta, or `_ElementApply` on directly assembled
+matrices), and every step solve is `_StepSolve`, an autograd Function
+over the configured solver — a dense Cholesky, Jacobi-PCG, or PCG
+preconditioned by a geometric-MG V-cycle (dynamic_rm_shell/mg.py) whose
+state is made once per simulate and reused by every step and by the
+adjoint. Autograd over the eager time loop then is the time-reversed
+adjoint sweep that `lax.scan`'s AD gives the JAX package;
+`simulate_outputs` checkpoints segments of the loop
+(torch.utils.checkpoint), so reverse-mode memory is O(sqrt(N_t) n). On
+the nodal path each product and step solve returns the per-cell
+cotangent of its element matrices, -(f lam)_c (f w)_c^T for a solve;
+autograd sums them over the steps and takes them through the direct
+assembly once (the vjp of the element assembly in the thickness).
 
-Nodal (CG1) thickness (element_wise_thickness=False) and the multi-chip
-`shard_spec` are not ported (ROADMAP.md, Queue 1), nor is the JAX
-package's fixed-trip inner CG, a TPU workaround: `inner_iters` caps PCG's
-iterations at the same target instead. The simulator runs on the CUDA card
-unless `device` names another; without a card and without `device` it
-raises (pass device="cpu" for the CPU).
+The multi-chip `shard_spec` is not ported (ROADMAP.md, Queue 1), nor is
+the JAX package's fixed-trip inner CG, a TPU workaround: `inner_iters`
+caps PCG's iterations at the same target instead. The simulator runs on
+the CUDA card unless `device` names another; without a card and without
+`device` it raises (pass device="cpu" for the CPU).
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from ...assembly.assemble import (
     FemForm,
     assemble_residual,
     assemble_scalar,
+    element_matrices,
     make_constrained_matvec_T,
 )
 from ...assembly.bc import DirichletBC, combine_bcs
@@ -71,20 +79,78 @@ def _default_bc(x):
     return np.abs(x[:, 0]) < 1e-6  # clamp x = 0 (the reference's default)
 
 
+class _ElementOperator:
+    """x -> A x for directly assembled lane-major element matrices Ae
+    (nd, nd, nc) that may carry an autograd graph to the design: one
+    fused-operator pass with free = ones; calls are differentiable in Ae
+    and x through _ElementApply."""
+
+    def __init__(self, Ae, space):
+        self.Ae, self.space = Ae, space
+        ones = torch.ones(space.n_dofs, dtype=Ae.dtype, device=Ae.device)
+        self.matvec = make_constrained_matvec_T(Ae.detach(), space, ones)
+
+    def __call__(self, x):
+        return _ElementApply.apply(self.Ae, x, self)
+
+
+def _cell_outer(space, a, b):
+    """The lane-major per-cell outer products a_c b_c^T (nd, nd, nc)."""
+    acT = space.gather_T(a)
+    bcT = space.gather_T(b)
+    return acT[:, None, :] * bcT[None, :, :]
+
+
+class _ElementApply(torch.autograd.Function):
+    """y = A x on element matrices Ae. A is symmetric, so dx = A g (one
+    more fused-operator pass); dAe is the per-cell outer product
+    g_c x_c^T."""
+
+    @staticmethod
+    def forward(ctx, Ae, x, op):
+        ctx.op = op
+        ctx.save_for_backward(x)
+        return op.matvec(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        op = ctx.op
+        g = g.contiguous()
+        dAe = dx = None
+        if ctx.needs_input_grad[0]:
+            dAe = _cell_outer(op.space, g, x)
+        if ctx.needs_input_grad[1]:
+            dx = op.matvec(g)
+        return dAe, dx, None
+
+
 class _StepOperators:
     """One design's operators: the K and M products, the constrained step
     operator A_c and its solver (state made once here, reused by every
-    step and by the adjoint). `log` collects (phase, CG iterations) of
-    every solve."""
+    step and by the adjoint). `design` is what a step solve differentiates
+    into: theta on the affine path, the step operator's element matrices
+    (with their graph to theta) on the nodal path. `log` collects (phase,
+    CG iterations) of every solve."""
 
     def __init__(self, sim, theta):
-        BK, BM, BA = sim._bases(theta)
         W, free = sim.W, sim.free_mask
-        self.free, self.space, self.BA = free, W, BA
-        self.K = AffineOperator(BK, (1, 3), theta, W)
-        self.M = AffineOperator(BM, (1,), theta, W)
-        with torch.no_grad():
-            Ae = _affine_combine(BA, theta.detach(), (1, 3))
+        self.free, self.space = free, W
+        if sim.element_wise_thickness:
+            BK, BM, BA = sim._bases(theta)
+            self.BA = BA
+            self.K = AffineOperator(BK, (1, 3), theta, W)
+            self.M = AffineOperator(BM, (1,), theta, W)
+            with torch.no_grad():
+                Ae = _affine_combine(BA, theta.detach(), (1, 3))
+            self.design = theta
+        else:
+            Ke, Me = sim._element_mats(theta)
+            self.K = _ElementOperator(Ke, W)
+            self.M = _ElementOperator(Me, W)
+            self.design = (2.0 / sim.dt ** 2) * Me + 0.5 * Ke
+            Ae = self.design.detach()
+        self.Ae = Ae
         self.A_c = make_constrained_matvec_T(Ae, W, free)
         self.log = []
         self.method = sim.solver_method
@@ -116,6 +182,16 @@ class _StepOperators:
         self.log.append((phase, info["iters"]))
         return x
 
+    def design_grad(self, design, w, lam):
+        """-(lam^T dA/d design w) at the solve's free*w and free*lam: the
+        closed-form vjp_theta on A's basis (affine), or the per-cell outer
+        product -(f lam)_c (f w)_c^T (nodal element matrices)."""
+        f = self.free
+        if design.dim() == 1:
+            return -_vjp_theta(self.BA, (1, 3), design, f * w, f * lam,
+                               self.space)
+        return -_cell_outer(self.space, f * lam, f * w)
+
     def residual(self, b, w):
         """||b - A_c w|| / ||b||: solver telemetry, not differentiated."""
         with torch.no_grad():
@@ -125,29 +201,27 @@ class _StepOperators:
 
 
 class _StepSolve(torch.autograd.Function):
-    """w = A_c(theta)^{-1} b. Backward: lam = A_c^{-1} g with the same
+    """w = A_c(design)^{-1} b. Backward: lam = A_c^{-1} g with the same
     solver and state (A_c is symmetric); d b = lam and
-    d theta = -vjp_theta(theta, free*w, free*lam) on A's basis — what
-    custom_linear_solve differentiates in the JAX package."""
+    d design = ops.design_grad(design, w, lam) — what custom_linear_solve
+    differentiates in the JAX package."""
 
     @staticmethod
-    def forward(ctx, b, theta, ops):
+    def forward(ctx, b, design, ops):
         w = ops.solve(b.contiguous(), "forward")
         ctx.ops = ops
-        ctx.save_for_backward(theta, w)
+        ctx.save_for_backward(design, w)
         return w
 
     @staticmethod
     def backward(ctx, g):
-        theta, w = ctx.saved_tensors
+        design, w = ctx.saved_tensors
         ops = ctx.ops
         lam = ops.solve(g.contiguous(), "adjoint")
-        dth = None
+        dd = None
         if ctx.needs_input_grad[1]:
-            f = ops.free
-            dth = -_vjp_theta(ops.BA, (1, 3), theta, f * w, f * lam,
-                              ops.space)
-        return lam, dth, None
+            dd = ops.design_grad(design, w, lam)
+        return lam, dd, None
 
 
 class PlateSim:
@@ -156,11 +230,6 @@ class PlateSim:
                  add_self_weight=False, g_factor=None, quad_deg=3,
                  solver_method=None, inner_iters=None, mg_coarsest_cells=64,
                  device=None):
-        if not element_wise_thickness:
-            raise NotImplementedError(
-                "PlateSim: element_wise_thickness=False (nodal thickness) "
-                "is not ported to femo_alpha_tpu_torch yet (ROADMAP.md, "
-                "Queue 1)")
         if solver_method not in (None, "mg", "cg", "dense"):
             raise ValueError(f"PlateSim: solver_method={solver_method!r} "
                              "(None, 'mg', 'cg' or 'dense')")
@@ -176,7 +245,8 @@ class PlateSim:
         self.g_factor = g_factor
 
         pde = self.pde = RMShellPDE(
-            mesh, element_wise_material=True, inplane_deg=quad_deg,
+            mesh, element_wise_material=element_wise_thickness,
+            inplane_deg=quad_deg,
             shear_deg=quad_deg, stress_deg=quad_deg, device=self.device)
         self.W, self.W_t, self.W_f = pde.W, pde.VT, pde.VF
         self.fe_dofs = self.W.n_dofs
@@ -274,6 +344,16 @@ class PlateSim:
     def _m_params(self, t_arr):
         return {"thickness": t_arr, "rho": self._rho}
 
+    def _element_mats(self, t_arr):
+        """K's and M's lane-major element matrices (nd, nd, nc), assembled
+        directly (nodal thickness); differentiable in t_arr."""
+        Ke = element_matrices(self.K_form, self._zero_w,
+                              self._k_params(t_arr))
+        Me = element_matrices(self.M_form, self._zero_w,
+                              self._m_params(t_arr))
+        return (Ke.permute(1, 2, 0).contiguous(),
+                Me.permute(1, 2, 0).contiguous())
+
     def _bases(self, theta):
         """The lane-major affine bases of K (powers (1, 3)), M ((1,)) and
         A = (2/dt^2) M + K/2 ((1, 3)). K's and M's are built (and verified
@@ -365,7 +445,7 @@ class PlateSim:
         b = self.free_mask * (
             F_i + ops.M((2.0 / dt ** 2) * w_old + (2.0 / dt) * wdot_old)
             - 0.5 * ops.K(w_old))
-        w = _StepSolve.apply(b, theta, ops)
+        w = _StepSolve.apply(b, ops.design, ops)
         wdot = (2.0 / dt) * (w - w_old) - wdot_old
         return w, wdot, b
 
@@ -471,9 +551,14 @@ class PlateSim:
 
         def residual(w, w_old, wdot_old, t_arr, f):
             theta = self._tensor(t_arr)
-            BK, BM, _ = self._bases(theta)
-            K = AffineOperator(BK, (1, 3), theta, self.W)
-            M = AffineOperator(BM, (1,), theta, self.W)
+            if self.element_wise_thickness:
+                BK, BM, _ = self._bases(theta)
+                K = AffineOperator(BK, (1, 3), theta, self.W)
+                M = AffineOperator(BM, (1,), theta, self.W)
+            else:
+                Ke, Me = self._element_mats(theta)
+                K = _ElementOperator(Ke, self.W)
+                M = _ElementOperator(Me, self.W)
             wdot = (2.0 / dt) * (w - w_old) - wdot_old
             wddot = (wdot - wdot_old) / dt
             F = self.assemble_load(f)

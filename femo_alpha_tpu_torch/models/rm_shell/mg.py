@@ -4,9 +4,12 @@ meshes.
 Port of femo_alpha_tpu/models/rm_shell/mg.py: re-discretizes the shell PDE
 on a nested StructuredQuadMesh hierarchy, coarsens the parameter fields by
 space kind (DG0 cell means, CG1 vertex injection), and re-assembles each
-level per design through its own affine basis (h*M1 + h^3*M3, the K2
-combine). Every level is lane-major, so each smoother step, residual and
-Lanczos matvec is one application of the fused constrained operator.
+level per design: through its own affine basis (h*M1 + h^3*M3, the K2
+combine) for element-wise material, directly (torch.func) for nodal
+material, whose operator is not affine per cell (the reference's
+affine=False branch). Every level is lane-major, so each smoother step,
+residual and Lanczos matvec is one application of the fused constrained
+operator.
 """
 
 from __future__ import annotations
@@ -67,10 +70,6 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
     mesh = pde.mesh
     if not getattr(mesh, "structured", False):
         return None
-    if not pde.element_wise_material:
-        raise NotImplementedError(
-            "build_shell_mg: the non-affine (nodal thickness) hierarchy is "
-            "not ported to femo_alpha_tpu_torch yet (ROADMAP.md, Queue 1)")
     c = np.asarray(mesh.coords)
     p0 = (float(c[:, 0].min()), float(c[:, 1].min()))
     p1 = (float(c[:, 0].max()), float(c[:, 1].max()))
@@ -90,6 +89,7 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
     if not can_coarsen(mesh.nx, mesh.ny, coarsest_cells):
         return None
 
+    affine = pde.element_wise_material
     levels = []
     nx_k, ny_k = mesh.nx, mesh.ny
     pde_k, free_k = build_level(nx_k, ny_k)
@@ -101,16 +101,18 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
                                       chunk=asm_chunk, verify=False)
 
         def make_Ae(p, asm_k=asm_k):
-            # without a basis (a geometry parameter requires grad, see
-            # ShellMGPrecond.prepare) the level is assembled directly
+            # without a basis (nodal material, or a geometry parameter
+            # that requires grad, see ShellMGPrecond.prepare) the level is
+            # assembled directly
             q = {k: v for k, v in p.items() if k != "_affine_basis"}
             basis = p.get("_affine_basis")
             if basis is None:
                 return asm_k.direct(None, q)
             return asm_k(None, q, basis=basis)
 
-        lev = {"space": pde_k.W, "free": free_k, "affine_asm": asm_k,
-               "make_Ae": make_Ae}
+        lev = {"space": pde_k.W, "free": free_k, "make_Ae": make_Ae}
+        if affine:
+            lev["affine_asm"] = asm_k
         levels.append(lev)
         if not can_coarsen(nx_k, ny_k, coarsest_cells):
             break
@@ -146,12 +148,14 @@ class ShellMGPrecond:
         """Per-level affine bases. Level 0's entry is None: setup_state
         always hands the hierarchy the fine operator itself (Ae0), so the
         fine level never re-assembles from a basis of its own. () when a
-        level has no basis (a geometry parameter in grad_keys): every
-        coarse level is then assembled directly."""
+        level has no basis (nodal material, or a geometry parameter in
+        grad_keys): every coarse level is then assembled directly."""
         p = {k: params[k] for k in self._KEYS if k in params}
         bases = []
         for k, lev in enumerate(self.mg.levels):
             if k > 0:
+                if "affine_asm" not in lev:
+                    return ()
                 b = lev["affine_asm"].prepare(p, grad_keys)
                 if b is None:
                     return ()

@@ -1,10 +1,11 @@
 """RMShellModel: one-call Reissner-Mindlin shell solver.
 
 Port of femo_alpha_tpu/models/rm_shell/model.py::RMShellModel for
-element-wise (DG0) isotropic material on the MID plane:
+isotropic material on the MID plane, nodal (CG1, the default) or
+element-wise (DG0, element_wise_material=True):
 
-    RMShellModel(mesh, shell_bc_func, element_wise_material=True,
-                 mesh_tags=...).evaluate(f, thickness, E, nu, density)
+    RMShellModel(mesh, shell_bc_func, mesh_tags=...).evaluate(
+        f, thickness, E, nu, density)
 
 returns a VariableGroup with disp_solid, disp_extracted, compliance, mass,
 volume, elastic_energy, pnorm_stress, aggregated_stress, pnorm_stress_<tag>
@@ -33,8 +34,12 @@ The solve, by configuration (as the reference chooses it):
   {"method": "gmres", "pc": "jacobi"}), as the reference uses them.
 Every operator application goes through the fused constrained operator
 (constrained_matvec_T: the cell block and, with penalty BCs, the facet
-block) and every per-design re-assembly of the cell operator through the
-affine basis (K2).
+block). With element-wise material every per-design re-assembly of the
+cell operator goes through the affine basis (K2): the stiffness is exactly
+h*M1 + h^3*M3 per cell. A nodal thickness field is not affine per cell, so
+there the cell operator (and every MG level, and the modal mass) is
+assembled directly (torch.func) once per linearization, and the forward
+and adjoint solves share it, as the reference does (emf=None).
 
 Shape and load inputs: `node_disp` (n_nodes, 3), the mesh-motion field
 uhat in the caller's node order, enters every form through the
@@ -56,8 +61,8 @@ geometry.
 `record` is stored, as the reference stores it (it writes nothing).
 
 Not ported yet (ROADMAP.md, Queue 1), raising NotImplementedError before
-the device is looked at: composite laminates, nodal (CG1) material fields,
-other element types and dtypes. The model runs on the CUDA card unless
+the device is looked at: composite laminates, other element types and
+dtypes. The model runs on the CUDA card unless
 `device` names another; without a card and without `device` it raises
 (pass device="cpu" for the CPU).
 """
@@ -133,8 +138,6 @@ class RMShellModel:
                 "Example: def ClampedBoundary(x): return x[:, 1] < 0.0")
         if composite_clt is not None:
             raise _not_ported("composite_clt")
-        if not element_wise_material:
-            raise _not_ported("element_wise_material=False")
         if dtype != torch.float64:
             raise _not_ported(f"dtype={dtype} (the solve runs in f64)")
         if element_type != "CG2CG1":
@@ -235,9 +238,11 @@ class RMShellModel:
                             ("density", pde.VT), ("uhat", pde.VU)]:
             fea.add_input(name, space)
 
-        # the MID-plane shell stiffness is exactly h*M1 + h^3*M3 per cell:
-        # each linearization re-assembles with one K2 combine
-        emf = CachedAffineAssembler(residual_form)
+        # the MID-plane shell stiffness is exactly h*M1 + h^3*M3 per cell
+        # with element-wise thickness: each linearization re-assembles with
+        # one K2 combine; nodal thickness is assembled directly
+        emf = (CachedAffineAssembler(residual_form)
+               if self.element_wise_material else None)
         fea.add_state("disp_solid", residual_form,
                       arguments=["thickness", "F_solid", "E", "nu", "uhat"],
                       solver_opts=opts, element_matrices_fn=emf,
@@ -297,6 +302,15 @@ class RMShellModel:
         return v[torch.as_tensor(np.asarray(idx, dtype=np.int64),
                                  device=self.device)].reshape(-1)
 
+    def _material_index(self):
+        """The caller-to-FE index of the material fields: the cell order
+        for element-wise fields of a mesh that has one, else the node
+        order (as the reference reorders them)."""
+        oci = self.mesh.original_cell_index
+        if self.element_wise_material and oci is not None:
+            return oci
+        return self.mesh.input_global_indices
+
     def _uhat(self, node_disp):
         """node_disp ((n_nodes, 3), or flat node-major) in the caller's
         node order -> uhat (3 n_nodes,) in the FE order; zero for None."""
@@ -314,7 +328,7 @@ class RMShellModel:
         takes)."""
         igi = self.mesh.input_global_indices
         oci = self.mesh.original_cell_index
-        mat_idx = oci if oci is not None else igi
+        mat_idx = self._material_index()
         f_idx = (oci if self.elementwise_pressure and oci is not None
                  else igi)
         inputs = {
@@ -373,7 +387,8 @@ class RMShellModel:
         dense_generalized_eigh. LOBPCG applies K through the solve path's
         fused operator (with its facet block on penalty meshes), M through
         the fused operator on the inertia form's element matrices (affine
-        in thickness with one power: one K2 combine per design), and is
+        in element-wise thickness with one power: one K2 combine per
+        design; assembled directly for nodal thickness), and is
         preconditioned by the solve path's MG V-cycle, band Cholesky or
         dense solve; its start block is
         numpy.random.default_rng(seed).standard_normal((n, k)).
@@ -409,9 +424,7 @@ class RMShellModel:
         K(p) u) and the geometry of node_disp (detached); differentiable
         in the four inputs."""
         pde = self.shell_pde
-        igi = self.mesh.input_global_indices
-        oci = self.mesh.original_cell_index
-        mat_idx = oci if oci is not None else igi
+        mat_idx = self._material_index()
         zeros = dict(dtype=self.dtype, device=self.device)
         uhat = self._uhat(node_disp).detach()
 
@@ -428,12 +441,15 @@ class RMShellModel:
         return fe_params
 
     def _modal_mass(self):
-        """(inertia form with the J(uhat) pullback, its affine assembler in
-        thickness with one power), made at first use."""
+        """(inertia form with the J(uhat) pullback, (u, mp) -> its
+        lane-major element matrices), made at first use: an affine
+        assembler in thickness with one power (one K2 combine) for
+        element-wise thickness, its direct assembly for nodal thickness."""
         if self._modal_m is None:
             mform = self.shell_pde.inertia_form(with_uhat=True)
-            self._modal_m = (mform, CachedAffineAssembler(
-                mform, powers=(1,), ignore_keys=()))
+            asm = CachedAffineAssembler(mform, powers=(1,), ignore_keys=())
+            self._modal_m = (mform, asm if self.element_wise_material
+                             else asm.direct)
         return self._modal_m
 
     def _modal_modes(self, thickness, E, nu, density, k, tol, maxiter, seed,
@@ -454,10 +470,9 @@ class RMShellModel:
             if k > free_idx.numel():
                 raise ValueError(f"n_modes={k} exceeds {free_idx.numel()} "
                                  "free dofs")
-            _, m_asm = self._modal_mass()
             # lane-major (nd, nd, nc): one K2, K = 1, on the basis of this
-            # geometry
-            Me = m_asm(None, mp)
+            # geometry (element-wise thickness), or a direct assembly
+            Me = self._modal_mass()[1](None, mp)
             u0 = torch.zeros(n, dtype=self.dtype, device=self.device)
             log(f"Modal analysis: {k} modes, {n} dofs ...")
             use_dense = solver == "dense" or (

@@ -21,9 +21,10 @@ space, MID reference plane, isotropic material):
 - the force-to-pressure map: a differentiable solve of (VF mass matrix)
   p = F (`make_force_to_pressure_solver`)
 
-The BOT reference plane, nodal (CG1) material fields with their H1
-regularization and composite laminates are not ported yet (ROADMAP.md,
-Queue 1).
+Material fields are element-wise (DG0) or nodal (CG1, the reference's
+default); the compliance's thickness regularization is L2 for the first
+and H1 for the second. The BOT reference plane and composite laminates
+are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -119,7 +120,8 @@ class RMShellPDE:
             tab_o = tabulate("DG", ct, 1, points=pts, weights=w)
             tabs = dict(d_phi=tab_d.phi, d_dphi=tab_d.dphi,
                         geom_dphi=tab_d.geom_dphi, r_phi=tab_r.phi,
-                        r_dphi=tab_r.dphi, t_phi=tab_t.phi, f_phi=tab_f.phi,
+                        r_dphi=tab_r.dphi, t_phi=tab_t.phi,
+                        t_dphi=tab_t.dphi, f_phi=tab_f.phi,
                         o_phi=tab_o.phi, w=np.asarray(w))
             self._rules[name] = {
                 k: torch.as_tensor(v, dtype=torch.float64, device=device)
@@ -288,26 +290,31 @@ class RMShellPDE:
     # ------------------------------------------------------------- outputs
     def regularization_kernel(self, kind):
         """Thickness regularization energy of `kind`: "L2" is
-        0.5e-2 int h^2 dx (element-wise thickness); "H1", the gradient form
-        of nodal thickness, is not ported."""
-        if kind != "L2":
-            raise _not_ported(f"regularization_kernel({kind!r}) (the H1 "
-                              "regularization of nodal thickness)")
+        0.5e-2 int h^2 dx (element-wise thickness), "H1" is
+        0.5e-2 int |grad h|^2 dx (nodal thickness), on the reference
+        measure."""
+        if kind not in ("L2", "H1"):
+            raise ValueError(f"regularization_kernel({kind!r})")
         alpha1 = 1e-2
 
         def kern(u_cell, x_cell, p):
             R = self._rules["inplane"]
             geo = surface_geometry(x_cell, R["geom_dphi"])
-            hq = _interp(self.VT, R["t_phi"], p["thickness"])
-            return torch.sum(0.5 * alpha1 * hq ** 2 * R["w"] * geo["dA"])
+            wdA = R["w"] * geo["dA"]
+            if kind == "L2":
+                hq = _interp(self.VT, R["t_phi"], p["thickness"])
+                return torch.sum(0.5 * alpha1 * hq ** 2 * wdA)
+            dphi_t = phys_grad_table(R["t_dphi"], geo["Pi"])
+            gh = torch.einsum("a,qag->qg", p["thickness"], dphi_t)
+            return torch.sum(0.5 * alpha1 * torch.sum(gh * gh, dim=1) * wdA)
 
         return kern
 
     def compliance_form(self):
-        """int |u_mid|^2 J(uhat) dx + regularization."""
-        if not self.element_wise_material:
-            raise _not_ported("the H1 regularization of nodal thickness")
-        reg = self.regularization_kernel("L2")
+        """int |u_mid|^2 J(uhat) dx + the thickness regularization (L2 for
+        element-wise thickness, H1 for nodal)."""
+        reg = self.regularization_kernel(
+            "L2" if self.element_wise_material else "H1")
         nv = self.nv
 
         def kern(u_cell, x_cell, p):

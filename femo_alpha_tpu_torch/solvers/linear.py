@@ -15,6 +15,13 @@ transposed blocks Ae.permute(1, 0, 2) (made at the first transposed
 solve). Without an external preconditioner M the iterative paths use
 point Jacobi from the blocks' diagonals (pc="jacobi", the reference's
 default) or none (pc=None).
+
+`extra_matvec`, a linear map x -> E x beside the element blocks (the
+linearization of a state-dependent extra residual), enters the operator
+as f*E(f*x): one more term of the summed matvec, its transpose (by
+torch.func.vjp) one more term of the transposed matvec, and its columns
+part of the dense matrix before the BCs are applied. The Jacobi
+diagonal leaves it out, as the reference's does.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from __future__ import annotations
 import torch
 
 from ..assembly.assemble import make_constrained_matvec_T
+from torch.func import jacfwd, vjp
+
 from .direct import apply_bc_dense
 from .krylov import cg_solve, gmres_solve
 from .precond import jacobi_from_blocks
@@ -61,6 +70,25 @@ def _sum_of_blocks(ops, free_mask):
     return matvec
 
 
+def _with_extra(matvec, extra, free_mask):
+    """matvec(x) + f*E(f*x)."""
+
+    def op(x):
+        return matvec(x) + free_mask * extra(free_mask * x)
+
+    return op
+
+
+def _transpose(linear_fn, n, like):
+    """x -> E^T x of a linear map E on R^n (its vjp at zero)."""
+    _, vjp_fn = vjp(linear_fn, like.new_zeros(n))
+
+    def op(x):
+        return vjp_fn(x)[0]
+
+    return op
+
+
 class LinearSolver:
     """Solve A x = b with strong-BC masking.
 
@@ -72,10 +100,12 @@ class LinearSolver:
     is not positive definite; an LU with symmetric=False). M: an external
     preconditioner application v -> M^{-1} v (e.g. an MG V-cycle or the
     band Cholesky); without one, pc='jacobi' builds point Jacobi and
-    pc=None applies none."""
+    pc=None applies none. extra_matvec: a linear map x -> E x added to the
+    raw operator (see the module docstring)."""
 
     def __init__(self, ops, n_dofs, free_mask=None, method="cg", pc="jacobi",
-                 tol=1e-12, maxiter=None, symmetric=True, M=None):
+                 tol=1e-12, maxiter=None, symmetric=True, M=None,
+                 extra_matvec=None):
         Ae0 = ops[0][0]
         self.ops = ops
         self.n = n_dofs
@@ -86,13 +116,16 @@ class LinearSolver:
                                      device=Ae0.device)
                           if free_mask is None else free_mask)
         self.method = method
+        self.extra_matvec = extra_matvec
         self.last_info = None
         self._chol = self._lu = None
         self._matvecT = None
         self.M = None
         if method == "dense":
-            A = apply_bc_dense(dense_from_blocks(ops, n_dofs),
-                               self.free_mask)
+            A = dense_from_blocks(ops, n_dofs)
+            if extra_matvec is not None:
+                A = A + jacfwd(extra_matvec)(A.new_zeros(n_dofs))
+            A = apply_bc_dense(A, self.free_mask)
             if symmetric:
                 L, info = torch.linalg.cholesky_ex(A)
                 if int(info) != 0:
@@ -109,6 +142,9 @@ class LinearSolver:
         # the constrained operator, on every path (the modal path applies
         # it on the dense one too)
         self.matvec = _sum_of_blocks(ops, self.free_mask)
+        if extra_matvec is not None:
+            self.matvec = _with_extra(self.matvec, extra_matvec,
+                                      self.free_mask)
 
     @property
     def matvecT(self):
@@ -117,9 +153,14 @@ class LinearSolver:
         if self.symmetric:
             return self.matvec
         if self._matvecT is None:
-            self._matvecT = _sum_of_blocks(
+            mvT = _sum_of_blocks(
                 [(Ae.permute(1, 0, 2).contiguous(), sp)
                  for Ae, sp in self.ops], self.free_mask)
+            if self.extra_matvec is not None:
+                mvT = _with_extra(mvT, _transpose(self.extra_matvec, self.n,
+                                                  self.free_mask),
+                                  self.free_mask)
+            self._matvecT = mvT
         return self._matvecT
 
     def _krylov(self, op, b, x0):

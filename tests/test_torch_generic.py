@@ -5,7 +5,9 @@ and 20x2 quads), the Hermite EulerBernoulliBeamModel (nel 50, evaluate and
 gradient), LinearSolver's Jacobi default, GMRES and symmetric=False
 (the transposed fused operator and the dense LU), solvers/precond.py,
 newton_solve, cg_solve's x0 / atol, FEA.solveLinearFwd / solveLinearBwd
-and add_exact_solution / compute_error.
+and add_exact_solution / compute_error, and a state-dependent
+extra_residual (the Poisson form plus 50 u: its linearization enters the
+operator of the forward and adjoint solves, CG and dense).
 
 Inputs are made with numpy from a seed and handed to both packages; f64
 throughout; the reference runs with its FEMO_* solver flags unset.
@@ -26,6 +28,8 @@ import jax
 import jax.numpy as jnp
 
 from femo_alpha_tpu.assembly.assemble import element_matrices as ref_em
+from femo_alpha_tpu.fea import FEA as RefFEA
+from femo_alpha_tpu.fea import FEAModel as RefFEAModel
 from femo_alpha_tpu.mesh import createRectangleMesh as ref_rect
 from femo_alpha_tpu.mesh import createUnitSquareMesh as ref_square
 from femo_alpha_tpu.models import ElasticityModel as RefElasticity
@@ -39,6 +43,7 @@ from femo_alpha_tpu.spaces import FunctionSpace as RefFS
 from femo_alpha_tpu.spaces import MixedSpace as RefMS
 
 from femo_alpha_tpu_torch.assembly.assemble import element_matrices
+from femo_alpha_tpu_torch.fea import FEA, FEAModel
 from femo_alpha_tpu_torch.mesh import createRectangleMesh, createUnitSquareMesh
 from femo_alpha_tpu_torch.models import (
     ElasticityModel,
@@ -406,3 +411,120 @@ def test_plain_precond_factory_matches_reference():
     assert abs(J / J_r - 1.0) <= BAR
     for g, g_r in zip(grads, grads_r):
         assert _rel(g, g_r) <= BAR
+
+
+EXTRA_C = 50.0
+
+
+def _extra_fea(fea_cls, model_cls, m, opts, extra):
+    """model m's Poisson form re-registered in a new FEA (fea_cls, of
+    either package) with extra_residual `extra` and m's strong BCs."""
+    kw = {} if fea_cls is RefFEA else {"device": "cpu"}
+    fea = fea_cls(m.mesh, **kw)
+    fea.add_input("kappa", m.K)
+    fea.add_input("f", m.V)
+    fea.add_state("u", m.fea.states["u"].form, arguments=["kappa", "f"],
+                  extra_residual=extra, solver_opts=dict(opts))
+    for bc in m.fea.bcs:
+        fea.add_strong_bc(bc.dofs, bc.values)
+    dot = torch.dot if fea_cls is FEA else jnp.dot
+    fea.add_output("compliance", fn=lambda v: dot(v["f"], v["u"]))
+    return fea, model_cls(fea=[fea])
+
+
+def _extra_inputs(m, seed=0):
+    """kappa = 1 + U[0, 1) (DG0), then f = U[0, 1) (P1), one generator."""
+    rng = np.random.default_rng(seed)
+    kappa = 1.0 + rng.random(m.K.n_dofs)
+    return kappa, rng.random(m.V.n_dofs)
+
+
+def _extra_pair(opts, n=8):
+    m = PoissonModel(createUnitSquareMesh(n, n, "triangle"), device="cpu")
+    rm = RefPoisson(ref_square(n, n, "triangle"))
+    fea, model = _extra_fea(FEA, FEAModel, m, opts,
+                            lambda u, p: EXTRA_C * u)
+    _, ref = _extra_fea(RefFEA, RefFEAModel, rm, opts,
+                        lambda u, p: EXTRA_C * u)
+    return m, fea, model, ref
+
+
+def _extra_compare(model, ref, m, bar):
+    kappa, f = _extra_inputs(m)
+    out, J, grads = _value_and_grads(
+        lambda k, f_: model.evaluate({"kappa": k, "f": f_}), "compliance",
+        (kappa, f))
+    J_r, grads_r = _ref_value_and_grads(
+        lambda k, f_: ref.evaluate({"kappa": k, "f": f_}), "compliance",
+        (kappa, f))
+    u_r = ref.evaluate({"kappa": jnp.asarray(kappa),
+                        "f": jnp.asarray(f)}).u
+    assert _rel(out.u, u_r) <= bar
+    assert abs(J / J_r - 1.0) <= bar
+    for g, g_r in zip(grads, grads_r):
+        assert _rel(g, g_r) <= bar
+    return out
+
+
+def test_state_dependent_extra_residual_matches_reference():
+    """A Poisson problem with extra_residual = 50 u through FEAModel
+    (createUnitSquareMesh(8, 8), P1, Jacobi-CG to 1e-12): the term's
+    linearization enters the forward and the adjoint operator, so the
+    state (max |u| 2.64e-4, not the 2.81e-2 of the operator without it),
+    the compliance and both gradients match the live JAX model at 1e-9."""
+    m, fea, model, ref = _extra_pair({"method": "cg", "tol": 1e-12})
+    out = _extra_compare(model, ref, m, BAR)
+    assert float(out.u.detach().abs().max()) < 1e-3
+    pde = fea.states["u"].pde
+    assert pde.last_info["forward"]["converged"]
+    assert pde.last_info["adjoint"]["converged"]
+
+
+def test_state_dependent_extra_residual_dense_path_matches_reference():
+    """The same problem on the dense path: the term's columns join the
+    dense matrix before the BCs, as in the JAX package (state, compliance
+    and gradients at 1e-12)."""
+    m, _, model, ref = _extra_pair({"method": "dense"})
+    _extra_compare(model, ref, m, DENSE_BAR)
+
+
+def test_extra_residual_linearization_and_gradient():
+    """The linearization enters the solver only where it is not zero (a
+    load term keeps the plain operator); the transposed operator of a
+    non-symmetric solver carries the term's transpose; and the kappa
+    gradient of the extra_residual problem agrees with a central
+    difference to 1e-6."""
+    m, fea, model, _ = _extra_pair({"method": "cg", "tol": 1e-12})
+    kappa, f = _extra_inputs(m)
+    params = {"kappa": torch.tensor(kappa), "f": torch.tensor(f)}
+    pde = fea.states["u"].pde
+    u = torch.tensor(np.random.default_rng(2).random(m.V.n_dofs))
+    ls = pde.make_solver(u, params)
+    x = torch.tensor(np.random.default_rng(3).standard_normal(m.V.n_dofs))
+    free = pde.free_mask
+    assert ls.extra_matvec is not None
+    plain = PoissonModel(m.mesh, device="cpu").fea.states["u"].pde
+    torch.testing.assert_close(
+        ls.matvec(x), plain.make_solver(u, params).matvec(x)
+        + EXTRA_C * free * free * x, rtol=1e-14, atol=1e-14)
+    load_fea, _ = _extra_fea(FEA, FEAModel, m, {"method": "cg"},
+                             lambda u_, p: -0.5 * p["f"])
+    assert load_fea.states["u"].pde.make_solver(
+        u, params).extra_matvec is None
+    ns = LinearSolver(ls.ops, m.V.n_dofs, free_mask=free, symmetric=False,
+                      method="gmres", extra_matvec=lambda v: EXTRA_C * v
+                      + torch.roll(v, 1))
+    y = torch.tensor(np.random.default_rng(4).standard_normal(m.V.n_dofs))
+    assert abs(float(torch.dot(ns.matvecT(y), x) - torch.dot(
+        y, ns.matvec(x)))) <= 1e-12 * float(torch.dot(y, ns.matvec(x)).abs())
+    kt = params["kappa"].clone().requires_grad_(True)
+    J = model.evaluate({"kappa": kt, "f": params["f"]}).compliance
+    J.backward()
+    d = torch.tensor(np.random.default_rng(5).standard_normal(len(kappa)))
+    eps = 1e-6
+    with torch.no_grad():
+        Jp, Jm = (float(model.evaluate({"kappa": params["kappa"] + s * d,
+                                        "f": params["f"]}).compliance)
+                  for s in (eps, -eps))
+    fd = (Jp - Jm) / (2 * eps)
+    assert abs(fd - float(torch.dot(kt.grad, d))) <= 1e-6 * abs(fd)

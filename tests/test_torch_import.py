@@ -100,8 +100,11 @@ def test_kernel_wrappers_refuse_bad_input(case):
 @pytest.mark.parametrize("what", ["penalty", "unstructured", "dense",
                                   "composite", "nodal_material"])
 def test_unported_configurations_raise(what, monkeypatch):
-    """What each path still lacks: the options below (composite laminates,
-    nodal material). Past the band memory guard (penalty BCs, or strong
+    """What each path still lacks: composite laminates raise. Nodal
+    material (the reference's default) evaluates on the MG path at 64x16:
+    uniform fields give the cantilever's compliance anchor less the L2
+    regularization that only element-wise thickness carries (the H1 term
+    of a uniform field is zero). Past the band memory guard (penalty BCs, or strong
     BCs on an unstructured mesh) the model selects the reference's
     aggregation AMG (AMGPrecondFactory) and evaluates finite outputs; the
     plate for these two cases is the smallest above the dense path's 6000
@@ -127,6 +130,20 @@ def test_unported_configurations_raise(what, monkeypatch):
         kw["solver_opts"] = {"method": "gmres", "pc": "jacobi"}
     if what in ("penalty", "unstructured"):
         monkeypatch.setenv("FEMO_BAND_MEM_GB", "0.001")
+    if what == "nodal_material":
+        model = RMShellModel(mesh, **kw)
+        nn = mesh.n_nodes
+        f = np.zeros((nn, 3))
+        f[:, 2] = 2.0
+        out = model.evaluate(f, np.full(nn, 0.2), np.full(nn, 4.32e8),
+                             np.zeros(nn), np.full(nn, 100.0))
+        pde = model.fea.states["disp_solid"].pde
+        assert pde.element_matrices_fn is None and model.mg is not None
+        # the anchor 4.387e-3 includes 0.5e-2 int h^2 dx = 4e-3 (10 x 2)
+        l2_reg = 0.5e-2 * 0.2 ** 2 * 20.0
+        assert abs((float(out.compliance) + l2_reg) / 4.387e-3 - 1.0) < 1e-3
+        assert bool(torch.isfinite(out.disp_solid).all())
+        return
     if what in ("dense", "penalty", "unstructured"):
         model = RMShellModel(mesh, **kw)
         pde = model.fea.states["disp_solid"].pde
@@ -160,8 +177,8 @@ def test_unported_configurations_raise(what, monkeypatch):
 
 def test_platesim_without_a_card_raises(monkeypatch):
     """PlateSim takes the card when `device` is not given and raises where
-    there is none (the test takes the card away itself); nodal thickness
-    is not ported and raises before the device is looked at."""
+    there is none (the test takes the card away itself), with element-wise
+    thickness and with its default, nodal thickness."""
     from femo_alpha_tpu_torch.mesh import createRectangleMesh
     from femo_alpha_tpu_torch.models.dynamic_rm_shell import PlateSim
 
@@ -170,5 +187,5 @@ def test_platesim_without_a_card_raises(monkeypatch):
     kw = dict(E=4.32e8, nu=0.0, rho=10.0, dt=0.01, Nsteps=2)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         PlateSim(mesh, element_wise_thickness=True, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
         PlateSim(mesh, **kw)

@@ -1,21 +1,29 @@
-"""Modal analysis and buckling of the port on the CPU, against the live JAX
+"""Modal analysis and buckling of the port on the CPU, against the JAX
 package: RMShellModel.evaluate_modal / modal_eigenvalues (dense reduced
 eigh and LOBPCG), the J(uhat) inertia form, the Rayleigh-quotient
 eigenvalue gradients, the penalty-BC case, three SLSQP iterations of the
 frequency-constrained example and the handbook buckling formulas.
 
 Inputs are made with numpy from a seed (tests/test_modal.py::_setup's
-8x4 plate) and handed to both packages; f64 throughout; the reference
-runs with its FEMO_* solver flags unset (FEMO_MG_F32, FEMO_LANE_MAJOR,
-FEMO_HOSTLOOP, FEMO_CG_DF, FEMO_OP_STORAGE). Tolerances: 1e-12 relative
+8x4 plate). The model-level cases hold the port to the JAX package's
+results at these inputs pinned in tests/reference_digits/modal_8x4.npz
+by `tools/modal_reference_digits.py tests` (the live JAX calls took
+~125 s); the form, dense-helper and buckling cases call the JAX package
+live. f64 throughout; the reference runs with its FEMO_* solver flags
+unset (FEMO_MG_F32, FEMO_LANE_MAJOR, FEMO_HOSTLOOP, FEMO_CG_DF,
+FEMO_OP_STORAGE). The SLSQP trajectory depends on scipy's version, which
+the file records (1.17.0). Tolerances: 1e-12 relative
 for the dense eigenvalues and the forms (the same arithmetic in another
 order), 1e-10 for LOBPCG against the dense path and against the
 reference's LOBPCG from the same start block (Ritz values converge as the
 residual squared), 1e-8 for eigenvalue gradients and the SLSQP history,
 1e-14 for the buckling formulas."""
 
+import os
+
 import numpy as np
 import pytest
+import scipy
 import torch
 
 import jax
@@ -24,9 +32,8 @@ import jax.numpy as jnp
 from femo_alpha_tpu.assembly.assemble import assemble_scalar as ref_scalar
 from femo_alpha_tpu.assembly.assemble import element_matrices as ref_elmat
 from femo_alpha_tpu.mesh import createRectangleMesh as ref_rect
-from femo_alpha_tpu.models import RMShellModel as RefModel
 from femo_alpha_tpu.models.rm_shell import buckling as ref_bk
-from femo_alpha_tpu.opt import OptimizationProblem as RefProblem
+from femo_alpha_tpu.models.rm_shell.pde import RMShellPDE as RefPDE
 from femo_alpha_tpu.solvers.direct import apply_bc_dense as ref_bc_dense
 from femo_alpha_tpu.solvers.direct import dense_from_elements as ref_dense
 
@@ -43,6 +50,8 @@ from femo_alpha_tpu_torch.solvers.direct import (
 
 REF_FLAGS = ("FEMO_MG_F32", "FEMO_LANE_MAJOR", "FEMO_HOSTLOOP", "FEMO_CG_DF",
              "FEMO_OP_STORAGE")
+REF_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "reference_digits", "modal_8x4.npz")
 
 
 def _bc(x):
@@ -83,43 +92,50 @@ def ref_env():
 
 
 @pytest.fixture(scope="module")
+def ref():
+    """The JAX package's results at this file's inputs
+    (tools/modal_reference_digits.py tests)."""
+    with np.load(REF_NPZ) as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.fixture(scope="module")
 def plate(ref_env):
-    """The 8x4 plate (2 x 1), strong clamp at x = 0, in both packages."""
+    """The 8x4 plate (2 x 1), strong clamp at x = 0, element-wise
+    material; the reference's RMShellPDE on the same mesh."""
     mesh = createRectangleMesh(8, 4, (0, 0), (2.0, 1.0), "quad", gdim=3)
     rmesh = ref_rect(8, 4, (0, 0), (2.0, 1.0), "quad", gdim=3)
     port = RMShellModel(mesh, shell_bc_func=_bc, element_wise_material=True,
                         PENALTY_BC=False, device="cpu")
-    ref = RefModel(rmesh, shell_bc_func=_bc, element_wise_material=True,
-                   PENALTY_BC=False)
-    return dict(port=port, ref=ref, args=_inputs(mesh.n_cells))
+    return dict(port=port, ref_pde=RefPDE(rmesh, element_wise_material=True),
+                args=_inputs(mesh.n_cells))
 
 
 @pytest.fixture(scope="module")
 def dense(plate):
-    args = plate["args"]
-    return (plate["port"].evaluate_modal(*args, n_modes=5, solver="dense"),
-            plate["ref"].evaluate_modal(*args, n_modes=5, solver="dense"))
+    return plate["port"].evaluate_modal(*plate["args"], n_modes=5,
+                                        solver="dense")
 
 
-def test_dense_eigenvalues_match_reference(dense):
+def test_dense_eigenvalues_match_reference(dense, ref):
     """The assembled K and M reduced to the free dofs, then the Cholesky-
     reduced eigh: eigenvalues to 1e-12, frequencies and extracted modes
     (up to sign) beside them."""
-    port, ref = dense
-    lam, lam_r = port.eigenvalues.detach(), np.asarray(ref.eigenvalues)
+    port = dense
+    lam, lam_r = port.eigenvalues.detach(), ref["dense_eigenvalues"]
     assert _rel(lam, lam_r) <= 1e-12
-    assert _rel(port.frequencies.detach(), ref.frequencies) <= 1e-12
+    assert _rel(port.frequencies.detach(), ref["dense_frequencies"]) <= 1e-12
     torch.testing.assert_close(port.frequencies.detach(),
                                torch.sqrt(lam) / (2 * np.pi), rtol=1e-15,
                                atol=0)
-    mx, mx_r = port.modes_extracted, np.asarray(ref.modes_extracted)
+    mx, mx_r = port.modes_extracted, ref["dense_modes_extracted"]
     assert mx.shape == mx_r.shape
     for i in range(5):
         s = float(np.sign(np.vdot(mx[i].numpy(), mx_r[i])))
         assert _rel(s * mx[i].numpy(), mx_r[i]) <= 1e-8
 
 
-def test_lobpcg_matches_dense_and_reference(plate, dense):
+def test_lobpcg_matches_dense_and_reference(plate, dense, ref):
     """LOBPCG (the dense solve path's Cholesky as preconditioner) from
     default_rng(seed)'s start block: eigenvalues to 1e-10 of the port's
     dense path and of the reference's LOBPCG from the same block; the
@@ -127,10 +143,9 @@ def test_lobpcg_matches_dense_and_reference(plate, dense):
     args = plate["args"]
     kw = dict(n_modes=4, solver="lobpcg", tol=1e-10, maxiter=100, seed=0)
     port = plate["port"].evaluate_modal(*args, **kw)
-    ref = plate["ref"].evaluate_modal(*args, **kw)
     lam = port.eigenvalues.detach()
-    assert _rel(lam, dense[0].eigenvalues.detach()[:4]) <= 1e-10
-    assert _rel(lam, ref.eigenvalues) <= 1e-10
+    assert _rel(lam, dense.eigenvalues.detach()[:4]) <= 1e-10
+    assert _rel(lam, ref["lobpcg_eigenvalues"]) <= 1e-10
     assert float(port.res_norms.max()) <= 1e-5
     assert 0 < port.iterations < 100
     model = plate["port"]
@@ -143,7 +158,7 @@ def test_lobpcg_matches_dense_and_reference(plate, dense):
     assert float((G - torch.eye(4, dtype=G.dtype)).abs().max()) <= 1e-8
 
 
-def test_eigenvalue_gradient_matches_reference(plate, dense):
+def test_eigenvalue_gradient_matches_reference(plate, ref):
     """modal_eigenvalues(n_modes=1): the backward of the Rayleigh quotient
     at the converged mode against jax.grad of the reference's Rayleigh map
     at its own converged modes (what its modal_eigenvalues differentiates),
@@ -154,10 +169,7 @@ def test_eigenvalue_gradient_matches_reference(plate, dense):
     leaves = [torch.as_tensor(a).requires_grad_(True) for a in args]
     lam = model.modal_eigenvalues(*leaves, n_modes=1)[0]
     lam.backward()
-    eig_fn = dense[1].eig_fn
-    g_r = jax.jit(jax.grad(lambda a, b, c, d: eig_fn(a, b, c, d)[0],
-                           argnums=(0, 1, 2, 3)))(
-        *[jnp.asarray(a) for a in args])
+    g_r = [ref[f"grad_{k}"] for k in ("thickness", "E", "nu", "density")]
     for t, g in zip(leaves, g_r):
         assert _rel(t.grad, g) <= 1e-8
     n_cached = len(model._modal_modes_cache)
@@ -167,24 +179,23 @@ def test_eigenvalue_gradient_matches_reference(plate, dense):
     assert float(again[0]) == float(lam.detach())
 
 
-def test_penalty_bc_modal_matches_reference(plate):
+def test_penalty_bc_modal_matches_reference(plate, ref):
     """The penalty-BC model (the reference's default BC mode) on the same
     plate, LOBPCG on the dense solve path, against the reference's run
     from the same start block: eigenvalues to 1e-10."""
-    mesh, rmesh = plate["port"].mesh, plate["ref"].mesh
+    mesh = plate["port"].mesh
     args = plate["args"]
     kw = dict(n_modes=3, solver="lobpcg", tol=1e-10)
     port = RMShellModel(mesh, shell_bc_func=_bc, element_wise_material=True,
                         device="cpu").evaluate_modal(*args, **kw)
-    ref = RefModel(rmesh, shell_bc_func=_bc,
-                   element_wise_material=True).evaluate_modal(*args, **kw)
-    assert _rel(port.eigenvalues.detach(), ref.eigenvalues) <= 1e-10
+    assert _rel(port.eigenvalues.detach(),
+                ref["penalty_eigenvalues"]) <= 1e-10
 
 
 def test_inertia_form_with_uhat_matches_reference(plate):
     """inertia_form(with_uhat=True) under a mesh motion uhat (the J(uhat)
     pullback): element matrices to 1e-12."""
-    pde, rpde = plate["port"].shell_pde, plate["ref"].shell_pde
+    pde, rpde = plate["port"].shell_pde, plate["ref_pde"]
     rng = np.random.default_rng(1)
     nel = pde.mesh.n_cells
     p = {"thickness": 0.02 + 0.01 * rng.random(nel),
@@ -213,67 +224,20 @@ def test_inertia_form_with_uhat_matches_reference(plate):
                 ref_bc_dense(A_r, jnp.asarray(f))) <= 1e-12
 
 
-def test_frequency_constrained_opt_history_matches_reference(plate):
+def test_frequency_constrained_opt_history_matches_reference(plate, ref):
     """Three SLSQP iterations of the frequency-constrained study of
     examples/advanced_examples/modal_analysis/ex_frequency_constrained_opt.py
     (its 2 x 1 plate clamped at x = 0, min mass s.t. a 20 % higher
     fundamental frequency, h in [h0/2, 3 h0] from h0 = 0.01, E 7e10,
     nu 0.3, rho 2700) on the 8x4 mesh of the models above: the objective
-    at each iteration to 1e-8 and the same nit / nfev / njev. The
-    reference runs jitted with its eigensolve warmed per design point
-    (precompute), as its own jitted test does."""
+    at each iteration to 1e-8 and the same nit / nfev / njev as the
+    reference's run (jitted, its eigensolve warmed per design point, as
+    its own jitted test runs it), on the scipy it ran with."""
+    assert scipy.__version__ == str(ref["scipy_version"])
     h0 = 0.01
-    rmodel = plate["ref"]
-    nel = rmodel.mesh.n_cells
-    E, nu, dens = (jnp.full(nel, v) for v in (7.0e10, 0.3, 2700.0))
-    mform, uhat0 = rmodel.shell_pde.mass_form(), jnp.zeros(
-        rmodel.shell_pde.VU.n_dofs)
-    lam0 = float(rmodel.modal_eigenvalues(jnp.full(nel, h0), E, nu, dens,
-                                          n_modes=1)[0])
-    target = (1.2 * np.sqrt(lam0)) ** 2
-
-    def ref_ev(dv):
-        th = dv["thickness"]
-        return {"lam1": rmodel.modal_eigenvalues(th, E, nu, dens,
-                                                 n_modes=1)[0],
-                "mass": ref_scalar(mform, th, {"density": dens,
-                                               "uhat": uhat0})}
-
-    def warm(dv):
-        rmodel.modal_eigenvalues(jnp.asarray(dv["thickness"]), E, nu, dens,
-                                 n_modes=1)
-
-    mass0 = float(ref_ev({"thickness": jnp.full(nel, h0)})["mass"])
-    seen = {}
-
-    class Recording(RefProblem):
-        def _scalar_fn(self, name, scaler=1.0):
-            vg = super()._scalar_fn(name, scaler)
-
-            def rec(x):
-                v, g = vg(x)
-                seen[np.asarray(x).tobytes()] = float(v)
-                return v, g
-
-            return rec
-
-    def problem(cls, ev, **kw):
-        prob = cls(ev, **kw)
-        prob.add_design_variable("thickness", h0 * np.ones(nel),
-                                 lower=0.5 * h0, upper=3 * h0)
-        prob.set_objective("mass", scaler=1.0 / mass0)
-        prob.add_constraint("lam1", lower=target, scaler=1.0 / target)
-        return prob
-
-    xs = []
-    _, res_r = problem(Recording, ref_ev, jit=True, precompute=[warm]).solve(
-        maxiter=3, ftol=1e-8, callback=lambda x: xs.append(np.array(x)),
-        report=False)
-    hist_r = [seen[x.tobytes()] for x in xs]
-
-    # the port, the same problem
     model = plate["port"]
     pde = model.shell_pde
+    nel = model.mesh.n_cells
     pm = pde.mass_form()
     Et, nut, dt = (torch.full((nel,), v, dtype=torch.float64)
                    for v in (7.0e10, 0.3, 2700.0))
@@ -286,12 +250,21 @@ def test_frequency_constrained_opt_history_matches_reference(plate):
                 "mass": assemble_scalar(pm, th, {"density": dt,
                                                  "uhat": zu})}
 
-    prob = problem(OptimizationProblem, ev, device="cpu")
+    th0 = torch.full((nel,), h0, dtype=torch.float64)
+    with torch.no_grad():
+        lam0 = float(ev({"thickness": th0})["lam1"])
+        mass0 = float(ev({"thickness": th0})["mass"])
+    target = (1.2 * np.sqrt(lam0)) ** 2
+    prob = OptimizationProblem(ev, device="cpu")
+    prob.add_design_variable("thickness", h0 * np.ones(nel), lower=0.5 * h0,
+                             upper=3 * h0)
+    prob.set_objective("mass", scaler=1.0 / mass0)
+    prob.add_constraint("lam1", lower=target, scaler=1.0 / target)
     _, res = prob.solve(maxiter=3, ftol=1e-8, report=False)
+    hist_r = ref["opt_history"]
     assert len(prob.history) == len(hist_r) == 3
     assert _rel(prob.history, hist_r) <= 1e-8
-    assert (res.nit, res.nfev, res.njev) == (res_r.nit, res_r.nfev,
-                                             res_r.njev)
+    assert [res.nit, res.nfev, res.njev] == ref["opt_counts"].tolist()
     # one evaluation per design point
     assert prob.counts["evaluate"] == res.nfev
 

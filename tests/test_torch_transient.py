@@ -28,6 +28,7 @@ from femo_alpha_tpu.models.dynamic_rm_shell import (
     PlateSim as RefSim,
     TotalStrainEnergyOperation as RefTSE,
 )
+from femo_alpha_tpu.models.rm_shell.pde import RMShellPDE as RefPDE
 from femo_alpha_tpu.spaces.pointeval import point_eval_rows as ref_rows
 
 from femo_alpha_tpu_torch.adjoint import check_totals
@@ -39,6 +40,7 @@ from femo_alpha_tpu_torch.models.dynamic_rm_shell import (
     TotalStrainEnergyOperation,
     VolumeOperation,
 )
+from femo_alpha_tpu_torch.models.rm_shell.pde import RMShellPDE
 from femo_alpha_tpu_torch.spaces.pointeval import point_eval_rows
 
 E_VAL, NU, RHO, DT, N = 4.32e8, 0.0, 10.0, 0.01, 20
@@ -174,8 +176,25 @@ def test_forms_match_reference(reference, port):
                            "uhat": torch.zeros(pde.VU.n_dofs,
                                                dtype=torch.float64)})
     assert _rel(Mu, reference["Mp"]) <= 1e-12
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pde.regularization_kernel("H1")
+    # the H1 regularization: zero for this cell-constant thickness, and
+    # the reference's on a nodal thickness of the same plate (1e-12)
+    h1 = pde.regularization_kernel("H1")
+    x = torch.as_tensor(np.asarray(pde.mesh.coords)[pde.mesh.conn[0]])
+    assert float(h1(None, x, {"thickness": th[:1]})) == 0.0
+    npde = RMShellPDE(pde.mesh, element_wise_material=False, inplane_deg=4,
+                      device="cpu")
+    rpde = RefPDE(ref_rect(10, 2, (0, 0), (10, 2), "quad", gdim=3),
+                  inplane_deg=4)
+    th_n = 0.1 + 0.05 * np.random.default_rng(5).random(npde.mesh.n_nodes)
+    conn, xs = np.asarray(npde.mesh.conn), np.asarray(npde.mesh.coords)
+    for c in range(npde.mesh.n_cells):
+        v = npde.regularization_kernel("H1")(
+            None, torch.as_tensor(xs[conn[c]]),
+            {"thickness": torch.as_tensor(th_n[conn[c]])})
+        v_r = rpde.regularization_kernel("H1")(
+            None, jnp.asarray(xs[conn[c]]),
+            {"thickness": jnp.asarray(th_n[conn[c]])})
+        assert abs(float(v) / float(v_r) - 1.0) <= 1e-12
 
 
 def test_affine_bases_and_vjp_theta_match_reference(reference, port):
