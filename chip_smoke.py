@@ -87,7 +87,18 @@ with the direct assemblies' share of the warm call, device ops and peak
 memory; and a nodal PlateSim on the transient workload's 40x20 plate cut
 to NODAL_SIM_STEPS steps, simulate_outputs + backward through the step
 MG, against the JAX digits and a central difference; the nodal path must
-launch the fused operator and never K2. Then the generic FEA library:
+launch the fused operator and never K2. Then a composite CLT laminate:
+RMShellModel(..., element_wise_material=True, composite_clt=...) with
+benchmarks.composite_laminate (an unsymmetric 2-ply near the root, a
+sandwich elsewhere) on the 128x32 plate, every MG level assembled
+directly with its coarsened laminate, evaluate + compliance.backward()
+against the JAX digits and CG passes, the quality gate, a host SuperLU
+solve, the adjoint's part of dJ/dh (dJ/dh less the closed-form L2
+regularization) against the JAX digits and a central difference of J less
+that term in one cell's thickness, and a bit-for-bit warm repeat, with
+the 1-ply laminate held to the isotropic model's
+compliance; the fused operator must launch and K2 never. Then the
+generic FEA library:
 PoissonModel P1 at the scale point's size (1024x1024 triangles,
 1,050,625 dofs, nd 3) through Jacobi-CG, evaluate + compliance backward,
 against a host SuperLU solve, the JAX digits and a central difference,
@@ -165,12 +176,11 @@ TRANSIENT_FD_BAR = 1e-5
 # PAV wing thickness study of phase_opt at maxiter OPT_MAXITER, scipy
 # 1.17.0 (tools/opt_reference_digits.py): the scaled objective at each
 # iteration, mass and aggregated stress at the returned x, nit/nfev/njev
-OPT_MAXITER = 3
-OPT_DIGITS = {"history": (2.022917068287587e-01, 2.042828747616884e-01,
-                          2.055208553469486e-01),
-              "mass": 2.719888025065152e+02,
-              "aggregated_stress": 6.100575256388704e+08,
-              "nit": 3, "nfev": 7, "njev": 4}
+OPT_MAXITER = 2
+OPT_DIGITS = {"history": (2.022917068287587e-01, 2.042828747616884e-01),
+              "mass": 2.942907983406823e+02,
+              "aggregated_stress": 5.471006527129024e+08,
+              "nit": 2, "nfev": 5, "njev": 3}
 OPT_BAR = 1e-6
 # the JAX package (evaluate_modal, LOBPCG + MG, f64) on the 128x32 bench
 # plate at the inputs of phase_modal (tools/modal_reference_digits.py)
@@ -289,6 +299,26 @@ NODAL_FD_BAR = 1e-5
 NODAL_SIM_STEPS = 10
 NODAL_SIM_DIGITS = {"total_strain_energy": (6.417991668054410e-02, 1e-8),
                     "grad_norm": (6.734508596703286e-02, 1e-6)}
+# a composite laminate (benchmarks.composite_laminate: the unsymmetric
+# 2-ply [E, E/10] at x < 10/3, the 3-ply sandwich [E, E/10, E] elsewhere)
+# on the 128x32 strong-BC cantilever, element-wise, MG with every level
+# assembled directly with its coarsened laminate, f_z = 2, h = 0.2,
+# E = 4.32e8, nu = 0.3, rho = 100 per cell: compliance, |dJ/dh|, the norm
+# of the adjoint's part of dJ/dh (dJ/dh less the L2 regularization's
+# closed form, ~1.1e-3 of |dJ/dh|) and the CG iterations of the forward
+# and adjoint solves per pass, [first pass, restart pass], from two runs
+# of the JAX package (tools/composite_reference_digits.py plate128: on 8
+# CPU threads, then pinned to one core; the digits are the first run's,
+# the second lies 4.4e-10 / 9.1e-14 / 1.5e-9 from them). The restart pass
+# starts from the true residual, at the f64 evaluation floor (~8,700x the
+# 1e-11 target here), so its length is set by rounding: each pass must lie
+# within the span of the JAX runs' counts.
+COMPOSITE_DIGITS = {"compliance": (7.878443434666539e-03, 1e-8),
+                    "grad_norm": (6.249626089415054e-04, 1e-6),
+                    "grad_state_norm": (7.075721192461966e-07, 1e-6)}
+COMPOSITE_PASSES = {"forward": [[25, 7], [25, 9]],
+                    "adjoint": [[25, 7], [25, 9]]}
+COMPOSITE_ONE_PLY_BAR = 1e-9  # the 1-ply laminate against the isotropic model
 # examples/basic_examples/beam_thickness_opt at nel = 50: the OpenMDAO
 # golden optimum (tests/test_beam.py, bar 1e-6) and the JAX run's SLSQP
 # counts, scipy 1.17.0 (printed beside the port's: the trajectory's tail
@@ -3094,6 +3124,225 @@ def phase_nodal(ck):
     return launches
 
 
+def phase_composite(ck):
+    """A composite CLT laminate on the card: RMShellModel(mesh,
+    shell_bc_func=..., element_wise_material=True, composite_clt=...) on
+    the 128x32 strong-BC cantilever (62,886 dofs, MG-preconditioned CG, the
+    fine operator and both coarse levels assembled directly with their
+    laminates at every linearization, no K2) with
+    benchmarks.composite_laminate, evaluate + compliance.backward() in the
+    thickness, against the JAX digits and iterations, the quality gate, a
+    host SuperLU solve, a Richardson central difference of J less its L2
+    regularization in the thickness of the cell where the adjoint's part
+    of dJ/dh is largest (its solves warm-started at the solution) and a
+    bit-for-bit warm repeat; then the 1-ply laminate z = [-h/2, h/2] at
+    the same
+    inputs against the isotropic model (the reference's own test at full
+    width)."""
+    import numpy as np
+    import torch
+
+    from femo_alpha_tpu_torch.adjoint import implicit
+    from femo_alpha_tpu_torch.assembly import affine
+    from femo_alpha_tpu_torch.benchmarks import (
+        composite_laminate,
+        l2_regularization_grad,
+        quality_verdict,
+    )
+    from femo_alpha_tpu_torch.mesh import createRectangleMesh
+    from femo_alpha_tpu_torch.models import CompositeCLT, RMShellModel
+    from femo_alpha_tpu_torch.utils.quality import residual_and_floor
+
+    t_phase = time.perf_counter()
+    kw = dict(dtype=torch.float64, device="cuda")
+    mesh = createRectangleMesh(128, 32, (0, 0), (10.0, 2.0), "quad", gdim=3)
+    nn, nel = mesh.n_nodes, mesh.n_cells
+    h0, E0, nu0 = 0.2, 4.32e8, 0.3
+    base = dict(shell_bc_func=lambda x: x[:, 0] < 1e-12,
+                element_wise_material=True, PENALTY_BC=False)
+    t0 = time.perf_counter()
+    model = RMShellModel(mesh, composite_clt=composite_laminate(mesh),
+                         **base)
+    setup_s = time.perf_counter() - t0
+    pde = model.fea.states["disp_solid"].pde
+    if model.device.type != "cuda":
+        fail(f"composite: RMShellModel without device= runs on "
+             f"{model.device}")
+    if pde.element_matrices_fn is not None or model.mg is None or \
+            len(model.mg.levels) != 3 or \
+            any("affine_asm" in lev for lev in model.mg.levels):
+        fail("composite: want the direct-assembly MG path on 3 levels, got "
+             f"emf {pde.element_matrices_fn}, mg {model.mg}")
+    f = torch.zeros((nn, 3), **kw)
+    f[:, 2] = 2.0
+    th0 = torch.full((nel,), h0, **kw)
+    E, nu, rho = (torch.full((nel,), v, **kw) for v in (E0, nu0, 100.0))
+
+    def run(m, th, backward=True):
+        m.model._last_states = {}  # from zero, as the first call
+        tht = th.clone().requires_grad_(backward)
+        out = m.evaluate(f, tht, E, nu, rho)
+        J = out.compliance
+        if backward:
+            J.backward()
+        torch.cuda.synchronize()
+        return J.detach(), out.disp_solid.detach(), tht.grad
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    J, u, g = run(model, th0)
+    first_s = time.perf_counter() - t0
+    passes = {k: v["passes"] for k, v in pde.last_info.items()}
+    t0 = time.perf_counter()
+    J2, u2, g2 = run(model, th0)
+    warm_s = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bitwise = (torch.equal(J, J2) and torch.equal(u, u2)
+               and torch.equal(g, g2))
+
+    # the warm call again, split: the direct assemblies (fine + coarse
+    # levels, each between two synchronizes) and the rest
+    asm = [0.0, 0]
+    em_i, em_a = implicit.element_matrices, affine.element_matrices
+
+    def timed_em(form, u_, params, chunk=16384, em=em_i):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        Ae = em(form, u_, params, chunk=chunk)
+        torch.cuda.synchronize()
+        asm[0] += time.perf_counter() - t
+        asm[1] += 1
+        return Ae
+
+    implicit.element_matrices = affine.element_matrices = timed_em
+    try:
+        t0 = time.perf_counter()
+        run(model, th0)
+        split_s = time.perf_counter() - t0
+    finally:
+        implicit.element_matrices, affine.element_matrices = em_i, em_a
+    ops_warm = _device_ops(lambda: run(model, th0))
+
+    params = model.fe_inputs(f, th0, E, nu)
+    # On a laminate h reaches the state only through drilling, so dJ/dh is
+    # nearly all the L2 regularization's w h (w = 1e-2 |cell|), a closed
+    # form. The adjoint's part is the rest: it is held to the JAX digits,
+    # and the central difference takes J less the L2 term 0.5 w.h^2 in the
+    # cell where that part is largest.
+    w = torch.as_tensor(l2_regularization_grad(mesh, np.ones(nel)), **kw)
+    gs = g - w * th0
+    cell = int(torch.argmax(gs.abs()))
+    with torch.no_grad():
+        rel_res, res_floor = residual_and_floor(pde, params, u)
+
+        def J_at(e):
+            # each evaluation starts its CG from the state at h0 (the
+            # model's warm start), so the four solves' rounding errors
+            # cancel in the differences: the compliance is fixed only to
+            # ~1e-9 by any f64 solve of this system
+            model.model._last_states = {"disp_solid": u}
+            th = th0.clone()
+            th[cell] += e
+            J_ = model.evaluate(f, th, E, nu, rho).compliance
+            return float(J_) - 0.5 * float(w @ th ** 2)
+
+        # the nodal phase's scheme: a step of 1e-2 h0 and a Richardson
+        # extrapolation of two central differences, which takes the
+        # truncation out
+        eps = 1e-2 * h0
+        fd = (4.0 * _fd(J_at, eps) - _fd(J_at, 2.0 * eps)) / 3.0
+        ad = float(gs[cell])
+        fd_err = abs(fd - ad) / abs(fd)
+        # the fused operator on the directly assembled laminate operator
+        Ae = pde._assemble_ops(torch.zeros_like(u), params)[0]
+        x = torch.randn(pde.n_dofs, generator=torch.Generator(device="cuda")
+                        .manual_seed(13), **kw)
+        k_err, k_case = fused_case(ck, "fused/composite", Ae,
+                                   pde._op_specs[0], pde.free_mask, x)
+        del Ae
+    nodal, direct_s = _host_direct(pde, params, u, spd=True)
+    verdict = quality_verdict(rel_res, res_floor, nodal)
+    got = {"compliance": float(J), "grad_norm": float(torch.linalg.norm(g)),
+           "grad_state_norm": float(torch.linalg.norm(gs))}
+    errs = {k: abs(got[k] / want - 1.0)
+            for k, (want, _) in COMPOSITE_DIGITS.items()}
+    finite = bool(torch.isfinite(u).all()) and bool(torch.isfinite(g).all())
+    shapes_ok = u.shape == (pde.n_dofs,) and g.shape == (nel,)
+    n_dofs = pde.n_dofs
+    del model, pde, u, u2, g, g2, gs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the 1-ply laminate z = [-h/2, h/2] against the isotropic model at the
+    # same inputs (the K2 path), both from zero
+    one = CompositeCLT.from_layup(nel, [E0], [nu0], [-h0 / 2.0, h0 / 2.0])
+    J1 = float(run(RMShellModel(mesh, composite_clt=one, **base), th0,
+                   backward=False)[0])
+    Ji = float(run(RMShellModel(mesh, **base), th0, backward=False)[0])
+    one_err = abs(J1 / Ji - 1.0)
+    say("composite", mesh=f"{mesh.nx}x{mesh.ny}", n_dofs=n_dofs,
+        mg_levels=3, setup_s=f"{setup_s:.3f}",
+        first_call_s=f"{first_s:.3f}", warm_s=f"{warm_s:.3f}",
+        split_call_s=f"{split_s:.3f}", direct_assemblies=asm[1],
+        direct_assembly_s=f"{asm[0]:.3f}",
+        direct_assembly_share=f"{asm[0] / split_s:.3f}",
+        device_ops_per_warm_call=ops_warm, peak_gb=f"{peak_gb:.3f}",
+        compliance=f"{got['compliance']:.15e}",
+        grad_norm=f"{got['grad_norm']:.15e}",
+        grad_state_norm=f"{got['grad_state_norm']:.15e}",
+        rel_err_vs_jax=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}),
+        cg_passes=json.dumps(passes),
+        jax_cg_passes=json.dumps(COMPOSITE_PASSES),
+        rel_res=f"{rel_res:.3e}", res_floor=f"{res_floor:.3e}",
+        quality=verdict, nodal_err_vs_direct=f"{nodal:.3e}",
+        direct_s=f"{direct_s:.1f}", fd_cell=cell, fd=f"{fd:.9e}",
+        adjoint=f"{ad:.9e}", fd_rel_err=f"{fd_err:.3e}",
+        warm_repeat_bitwise_equal=bitwise,
+        one_ply_compliance=f"{J1:.15e}", isotropic_compliance=f"{Ji:.15e}",
+        one_ply_rel_err=f"{one_err:.3e}", launches=json.dumps(launches),
+        kernel=json.dumps(k_case),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if not finite or not shapes_ok:
+        fail("composite: non-finite or mis-shaped displacement / gradient")
+    for k, (want, bar) in COMPOSITE_DIGITS.items():
+        if not errs[k] <= bar:
+            fail(f"composite {k} {got[k]:.15e} vs the JAX package's "
+                 f"{want:.15e} (bar {bar})")
+    for k, runs in COMPOSITE_PASSES.items():
+        got_p = passes.get(k, [])
+        span = [(min(r[i] for r in runs), max(r[i] for r in runs))
+                for i in range(2)]
+        if len(got_p) != 2 or not all(
+                lo <= n <= hi for n, (lo, hi) in zip(got_p, span)):
+            fail(f"composite: {k} CG passes {got_p} vs the JAX runs' "
+                 f"{runs} (each pass within the runs' span {span})")
+    if verdict != "OK":
+        fail(f"composite: quality {verdict} (rel_res {rel_res:.3e}, floor "
+             f"{res_floor:.3e}, nodal {nodal:.3e})")
+    if not nodal <= NODAL_BAR:
+        fail(f"composite: nodal error vs SuperLU {nodal:.3e} > "
+             f"{NODAL_BAR:.0e}")
+    if not fd_err <= NODAL_FD_BAR:
+        fail(f"composite FD {fd:.9e} vs adjoint {ad:.9e}: rel {fd_err:.3e}")
+    if not bitwise:
+        fail("composite: the warm repeat differs from the first call's bits")
+    if not k_err <= FUSED_BAR["float64"]:
+        fail(f"composite fused operator: rel err {k_err:.3e}")
+    if not one_err <= COMPOSITE_ONE_PLY_BAR:
+        fail(f"composite: the 1-ply laminate's compliance {J1:.15e} vs the "
+             f"isotropic model's {Ji:.15e}: rel {one_err:.3e}")
+    if launches["affine_combine"] != 0 or \
+            launches["constrained_matvec_T"] <= 0:
+        fail(f"composite: want K2 never and the fused operator launched on "
+             f"the laminate path: {launches}")
+    return launches
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -3123,6 +3372,7 @@ def main():
     by_path["amg"], schwarz_case = phase_amg(ck)
     by_path["mg_w"] = phase_mg_w(ck)
     by_path["nodal"] = phase_nodal(ck)
+    by_path["composite"] = phase_composite(ck)
     by_path["poisson"], poisson_cases = phase_poisson(ck)
     by_path["nonlinear"] = phase_nonlinear(ck)
     by_path["elasticity"], elasticity_case = phase_elasticity(ck)

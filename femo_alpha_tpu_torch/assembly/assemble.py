@@ -25,11 +25,19 @@ class FemForm:
     residual is then its gradient).
 
     param_specs: dict name -> FunctionSpace (cell-gathered) or None (value
-    passed to every cell unmapped)."""
+    passed to every cell unmapped).
 
-    def __init__(self, space, kernel, kind="residual", param_specs=None):
+    cell_consts: dict name -> fixed per-cell tensor (leading axis cells, in
+    the space's cell order, on the device and in the dtype of the state),
+    mapped into the kernel beside the gathered parameters (the composite
+    laminate's A/B/D/A_s). The caller builds them once, outside every
+    torch.func transform; they are sliced per chunk by cell index."""
+
+    def __init__(self, space, kernel, kind="residual", param_specs=None,
+                 cell_consts=None):
         self.space = space
         self.param_specs = dict(param_specs or {})
+        self.cell_consts = dict(cell_consts or {})
         if kind == "energy":
             self.energy_kernel = kernel
             self.kernel = grad(kernel, argnums=0)
@@ -54,11 +62,20 @@ class FemForm:
                 out[name], dims[name] = sp.gather(v), 0
         return out, dims
 
+    def consts_of(self, cells=None):
+        """The cell constants (all cells, or the rows `cells`, an int64
+        tensor on their device)."""
+        if cells is None:
+            return dict(self.cell_consts)
+        return {name: v[cells] for name, v in self.cell_consts.items()}
+
     def cell_values(self, fn, u, params, chunk=None):
         """vmap fn(u_cell, x_cell, pcells) over cells, in blocks of `chunk`
         cells (bounds the peak memory of wide jacfwd batches)."""
         uc = self.space.gather(u)
         pc, dims = self.gather_params(params)
+        for name, v in self.consts_of().items():
+            pc[name], dims[name] = v, 0
         xc = self.cell_coords(uc.device, uc.dtype)
         batched = vmap(fn, in_dims=(0, 0, dims))
         nc = uc.shape[0]
@@ -104,6 +121,8 @@ def assemble_scalar_subset(form: FemForm, u, params, cells):
             pc[name], dims[name] = v, None
         else:
             pc[name], dims[name] = v[rows(sp)], 0
+    for name, v in form.consts_of(idx).items():
+        pc[name], dims[name] = v, 0
     return vmap(form.energy_kernel, in_dims=(0, 0, dims))(uc, xc, pc).sum()
 
 

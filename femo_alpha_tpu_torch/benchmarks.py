@@ -220,6 +220,39 @@ def nodal_thickness(coords, h0=0.2, length=10.0, width=2.0,
                  * np.cos(np.pi * coords[:, 1] / width))
 
 
+def composite_laminate(mesh, h=0.2, E=4.32e8, nu=0.3, x_split=10.0 / 3.0):
+    """The composite laminate of chip_smoke.py's `composite` phase, per cell
+    in the mesh's FE cell order (CompositeCLT.from_layup, numpy f64): where
+    the cell's centroid lies at x < x_split (10/3 on the 10 x 2 plate, on
+    no level's cell edge, so the MG levels' 2x2 means mix the two) the
+    unsymmetric 2-ply [E, E/10] on z = [-h/2, 0, h/2] (B != 0: membrane and
+    bending couple), elsewhere the 3-ply sandwich [E, E/10, E] on
+    z = [-h/2, -h/4, h/4, h/2]. mesh: any mesh with `coords` and `conn`."""
+    from .models.rm_shell.material import CompositeCLT
+
+    xc = np.asarray(mesh.coords)[np.asarray(mesh.conn)].mean(axis=1)[:, 0]
+    nc = len(xc)
+    two = CompositeCLT.from_layup(nc, [E, E / 10.0], [nu, nu],
+                                  [-h / 2.0, 0.0, h / 2.0])
+    three = CompositeCLT.from_layup(nc, [E, E / 10.0, E], [nu, nu, nu],
+                                    [-h / 2.0, -h / 4.0, h / 4.0, h / 2.0])
+    near = (xc < x_split)[:, None, None]
+    return CompositeCLT(*(np.where(near, getattr(two, k), getattr(three, k))
+                          for k in ("A", "B", "D", "As")))
+
+
+def l2_regularization_grad(mesh, thickness):
+    """d/dh of the compliance's L2 thickness regularization 0.5e-2 int h^2
+    for an element-wise thickness: 1e-2 h_c |cell c| per cell, exact on
+    flat quads. On a laminate h reaches the state only through drilling, so
+    this term is nearly all of dJ/dh and the rest is the adjoint's part.
+    numpy (n_cells,)."""
+    x = np.asarray(mesh.coords)[np.asarray(mesh.conn)]  # (nc, 4, 3)
+    area = 0.5 * np.linalg.norm(np.cross(x[:, 2] - x[:, 0],
+                                         x[:, 3] - x[:, 1]), axis=1)
+    return 1e-2 * np.asarray(thickness, dtype=np.float64) * area
+
+
 def planform_direction(coords, length=10.0, width=2.0):
     """A smooth unit in-plane (y) direction for shape finite differences,
     d = s cos(pi y / W) normalised, zero at the root. numpy (n_nodes,)."""

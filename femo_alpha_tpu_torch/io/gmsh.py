@@ -1,10 +1,9 @@
-"""Gmsh `.msh` ASCII reader (MSH 2.2 and 4.1).
+"""Gmsh `.msh` ASCII reader and writer (MSH 2.2 and 4.1).
 
-Copy of the reader of femo_alpha_tpu/io/gmsh.py (numpy only; the JAX
-package cannot be imported without jax; its writer, which only the JAX
-package's round-trip tests use, is left out). The reorder maps it sets are
-the ones the model's caller-ordered inputs go through, so they are kept
-exactly.
+Copy of femo_alpha_tpu/io/gmsh.py (numpy only; the JAX package cannot be
+imported without jax). The reorder maps the reader sets are the ones the
+model's caller-ordered inputs go through, so they are kept exactly; the
+writer emits the same text as the reference's for the same mesh.
 
 It stands in for the reference FEMO's meshio/dolfinx-gmsh import path
 (readFEAMesh / import_mesh, utils_dolfinx.py:34-128): the reference ships
@@ -20,6 +19,8 @@ and facet elements of dimension rdim-1 become `facet_tags`
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 # gmsh element type id -> (name, n_nodes, topological dim)
@@ -29,6 +30,7 @@ _GMSH_TYPES = {
     3: ("quad", 4, 2),
     15: ("point", 1, 0),
 }
+_TYPE_OF_CELL = {"interval": 1, "triangle": 2, "quad": 3}
 
 
 def _read_sections(filename):
@@ -293,3 +295,83 @@ def _parse_v4(sections):
             "conn": conn,
         })
     return node_tags, coords, elems
+
+
+def write_msh(filename, mesh, version="2.2", cell_tags=None,
+              physical_names=None):
+    """Write an ASCII gmsh file (v2.2 or v4.1) from a Mesh.
+
+    cell_tags: optional (n_cells,) int physical tag per cell (default 1);
+    physical_names: optional {tag: name}. v4.1 writes one geometric entity
+    per physical tag and the elements in blocks of consecutive equal tags,
+    so read_msh gives the cells back in their order."""
+    coords = np.asarray(mesh.coords, dtype=np.float64)
+    if coords.shape[1] < 3:
+        coords = np.concatenate(
+            [coords, np.zeros((len(coords), 3 - coords.shape[1]))], axis=1)
+    conn = np.asarray(mesh.conn)
+    etype = _TYPE_OF_CELL[mesh.cell_type]
+    tags = (np.ones(mesh.n_cells, dtype=np.int64) if cell_tags is None
+            else np.asarray(cell_tags, dtype=np.int64))
+    out = []
+    if str(version).startswith("2"):
+        out += ["$MeshFormat", "2.2 0 8", "$EndMeshFormat"]
+        if physical_names:
+            out += ["$PhysicalNames", str(len(physical_names))]
+            dim = 1 if mesh.cell_type == "interval" else 2
+            for t, nm in sorted(physical_names.items()):
+                out.append(f'{dim} {t} "{nm}"')
+            out += ["$EndPhysicalNames"]
+        out += ["$Nodes", str(mesh.n_nodes)]
+        for i, p in enumerate(coords):
+            out.append(f"{i + 1} {p[0]:.16g} {p[1]:.16g} {p[2]:.16g}")
+        out += ["$EndNodes", "$Elements", str(mesh.n_cells)]
+        for c in range(mesh.n_cells):
+            nodes = " ".join(str(v + 1) for v in conn[c])
+            out.append(f"{c + 1} {etype} 2 {tags[c]} {tags[c]} {nodes}")
+        out += ["$EndElements"]
+    else:
+        dim = 1 if mesh.cell_type == "interval" else 2
+        utags = np.unique(tags)
+        out += ["$MeshFormat", "4.1 0 8", "$EndMeshFormat"]
+        if physical_names:
+            out += ["$PhysicalNames", str(len(physical_names))]
+            for t, nm in sorted(physical_names.items()):
+                out.append(f'{dim} {t} "{nm}"')
+            out += ["$EndPhysicalNames"]
+        # one geometric entity per physical tag, entity tag == physical tag
+        lo, hi = coords.min(axis=0), coords.max(axis=0)
+        bbox = (f"{lo[0]:.16g} {lo[1]:.16g} {lo[2]:.16g} "
+                f"{hi[0]:.16g} {hi[1]:.16g} {hi[2]:.16g}")
+        counts = [0, 0, 0, 0]
+        counts[dim] = len(utags)
+        out += ["$Entities", " ".join(str(c) for c in counts)]
+        for t in utags:
+            out.append(f"{t} {bbox} 1 {t} 0")
+        out += ["$EndEntities"]
+        out += ["$Nodes",
+                f"1 {mesh.n_nodes} 1 {mesh.n_nodes}",
+                f"{dim} {utags[0]} 0 {mesh.n_nodes}"]
+        out += [str(i + 1) for i in range(mesh.n_nodes)]
+        out += [f"{p[0]:.16g} {p[1]:.16g} {p[2]:.16g}" for p in coords]
+        out += ["$EndNodes"]
+        # blocks = runs of consecutive equal tags (preserves cell order;
+        # per-tag grouping would permute cells on read-back)
+        splits = np.where(np.diff(tags) != 0)[0] + 1
+        starts = np.concatenate([[0], splits, [mesh.n_cells]])
+        blocks = [(tags[starts[k]], np.arange(starts[k], starts[k + 1]))
+                  for k in range(len(starts) - 1)]
+        out += ["$Elements",
+                f"{len(blocks)} {mesh.n_cells} 1 {mesh.n_cells}"]
+        eid = 1
+        for t, cells in blocks:
+            out.append(f"{dim} {t} {etype} {len(cells)}")
+            for c in cells:
+                nodes = " ".join(str(v + 1) for v in conn[c])
+                out.append(f"{eid} {nodes}")
+                eid += 1
+        out += ["$EndElements"]
+    d = os.path.dirname(os.path.abspath(filename))
+    os.makedirs(d, exist_ok=True)
+    with open(filename, "w") as f:
+        f.write("\n".join(out) + "\n")

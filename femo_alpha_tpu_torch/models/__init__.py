@@ -4,7 +4,13 @@ and nonlinear), plane elasticity and the Hermite beam."""
 from .beam import EulerBernoulliBeamModel
 from .elasticity import ElasticityModel
 from .poisson import NonlinearPoissonModel, PoissonModel
-from .rm_shell import RMShellModel
+from .rm_shell import (
+    CompositeCLT,
+    ForceReshapingModel,
+    RMShellModel,
+    RMShellPDE,
+)
 
-__all__ = ["EulerBernoulliBeamModel", "RMShellModel",
-           "NonlinearPoissonModel", "PoissonModel", "ElasticityModel"]
+__all__ = ["EulerBernoulliBeamModel", "RMShellModel", "RMShellPDE",
+           "CompositeCLT", "ForceReshapingModel", "NonlinearPoissonModel",
+           "PoissonModel", "ElasticityModel"]

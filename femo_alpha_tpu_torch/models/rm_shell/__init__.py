@@ -1,6 +1,8 @@
 """Reissner-Mindlin shell model (port of femo_alpha_tpu/models/rm_shell)."""
 
-from .model import RMShellModel
+from .material import CompositeCLT
+from .model import ForceReshapingModel, RMShellModel
 from .pde import RMShellPDE
 
-__all__ = ["RMShellModel", "RMShellPDE"]
+__all__ = ["CompositeCLT", "ForceReshapingModel", "RMShellModel",
+           "RMShellPDE"]

@@ -5,11 +5,13 @@ Port of femo_alpha_tpu/models/rm_shell/mg.py: re-discretizes the shell PDE
 on a nested StructuredQuadMesh hierarchy, coarsens the parameter fields by
 space kind (DG0 cell means, CG1 vertex injection), and re-assembles each
 level per design: through its own affine basis (h*M1 + h^3*M3, the K2
-combine) for element-wise material, directly (torch.func) for nodal
-material, whose operator is not affine per cell (the reference's
-affine=False branch). Every level is lane-major, so each smoother step,
-residual and Lanczos matvec is one application of the fused constrained
-operator.
+combine) for element-wise material on the MID plane without a laminate,
+directly (torch.func) otherwise — nodal material, the BOT plane or a
+composite laminate, whose operator is not h*M1 + h^3*M3 per cell (the
+reference's affine=False branch). A laminate is coarsened with the levels
+by 2x2 cell means of its A/B/D/A_s (`_coarsen_composite`). Every level is
+lane-major, so each smoother step, residual and Lanczos matvec is one
+application of the fused constrained operator.
 """
 
 from __future__ import annotations
@@ -74,13 +76,13 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
     p0 = (float(c[:, 0].min()), float(c[:, 1].min()))
     p1 = (float(c[:, 0].max()), float(c[:, 1].max()))
 
-    def build_level(nx_k, ny_k):
+    def build_level(nx_k, ny_k, composite_k):
         mesh_k = StructuredQuadMesh(nx_k, ny_k, p0, p1, gdim=mesh.gdim)
         pde_k = RMShellPDE(
             mesh_k, element_wise_material=pde.element_wise_material,
             elementwise_pressure=pde.elementwise_pressure,
             inplane_deg=pde.inplane_deg, shear_deg=pde.shear_deg,
-            device=device)
+            bot_plane=pde.bot_plane, composite=composite_k, device=device)
         free_k, _ = combine_bcs(
             pde_k.W.n_dofs, [DirichletBC(strong_bc_dofs(pde_k, bc_func))],
             dtype=torch.float64, device=device)
@@ -89,10 +91,12 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
     if not can_coarsen(mesh.nx, mesh.ny, coarsest_cells):
         return None
 
-    affine = pde.element_wise_material
+    affine = (pde.element_wise_material and pde.composite is None
+              and not pde.bot_plane)
     levels = []
     nx_k, ny_k = mesh.nx, mesh.ny
-    pde_k, free_k = build_level(nx_k, ny_k)
+    comp_k = pde.composite
+    pde_k, free_k = build_level(nx_k, ny_k, comp_k)
     while True:
         # verify=False: these bases only feed the V-cycle (preconditioner
         # quality, not solution accuracy); the fine operator's basis in
@@ -101,9 +105,9 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
                                       chunk=asm_chunk, verify=False)
 
         def make_Ae(p, asm_k=asm_k):
-            # without a basis (nodal material, or a geometry parameter
-            # that requires grad, see ShellMGPrecond.prepare) the level is
-            # assembled directly
+            # without a basis (nodal material, the BOT plane, a laminate,
+            # or a geometry parameter that requires grad, see
+            # ShellMGPrecond.prepare) the level is assembled directly
             q = {k: v for k, v in p.items() if k != "_affine_basis"}
             basis = p.get("_affine_basis")
             if basis is None:
@@ -126,11 +130,50 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
                     "F_solid": torch.zeros_like(cF(p["F_solid"]))}
 
         lev["coarsen"] = coarsen
+        if comp_k is not None:
+            comp_k = _coarsen_composite(comp_k, nx_k, ny_k)
         nx_k, ny_k = nx_k // 2, ny_k // 2
-        pde_k, free_k = build_level(nx_k, ny_k)
+        pde_k, free_k = build_level(nx_k, ny_k, comp_k)
 
     return GeometricMG(levels, make_constrained_matvec_T, degree=degree,
                        lmin_ratio=lmin_ratio, cycle=cycle, smoother=smoother)
+
+
+def _coarsen_composite(composite, nx, ny):
+    """2x2 cell means of the per-cell CLT tensors (DG0 semantics, the
+    cell order of _coarsen_dg0), in numpy f64."""
+    from .material import CompositeCLT
+
+    def c(a):
+        s = a.shape[1:]
+        return a.reshape(nx // 2, 2, ny // 2, 2, *s).mean(
+            axis=(1, 3)).reshape(-1, *s)
+
+    return CompositeCLT(c(composite.A), c(composite.B), c(composite.D),
+                        c(composite.As))
+
+
+def shell_mg_precond_factory(mg, dtype=None):
+    """A plain precond_factory for ImplicitPDE's solver_opts: it sets the
+    hierarchy up for the current parameters at each linearization (every
+    level assembled from the parameters, the fine one included) and
+    returns the V-cycle application. dtype: the hierarchy's precision,
+    which is f64 in the port (None or torch.float64)."""
+    if dtype not in (None, torch.float64):
+        raise NotImplementedError(
+            f"shell_mg_precond_factory(dtype={dtype}): the port's hierarchy "
+            "runs in f64 (see ROADMAP.md)")
+
+    def factory(u, params):
+        keys = ("thickness", "E", "nu", "uhat", "F_solid")
+        state = mg.setup({k: params[k] for k in keys})
+
+        def M(v):
+            return mg.apply(state, v)
+
+        return M
+
+    return factory
 
 
 class ShellMGPrecond:

@@ -1,8 +1,9 @@
 """RMShellModel: one-call Reissner-Mindlin shell solver.
 
-Port of femo_alpha_tpu/models/rm_shell/model.py::RMShellModel for
-isotropic material on the MID plane, nodal (CG1, the default) or
-element-wise (DG0, element_wise_material=True):
+Port of femo_alpha_tpu/models/rm_shell/model.py::RMShellModel, with
+nodal (CG1, the default) or element-wise (DG0, element_wise_material=True)
+material fields, isotropic on the MID plane or a composite laminate
+(`composite_clt`, a material.CompositeCLT in the mesh's FE cell order):
 
     RMShellModel(mesh, shell_bc_func, mesh_tags=...).evaluate(
         f, thickness, E, nu, density)
@@ -34,12 +35,17 @@ The solve, by configuration (as the reference chooses it):
   {"method": "gmres", "pc": "jacobi"}), as the reference uses them.
 Every operator application goes through the fused constrained operator
 (constrained_matvec_T: the cell block and, with penalty BCs, the facet
-block). With element-wise material every per-design re-assembly of the
-cell operator goes through the affine basis (K2): the stiffness is exactly
-h*M1 + h^3*M3 per cell. A nodal thickness field is not affine per cell, so
-there the cell operator (and every MG level, and the modal mass) is
-assembled directly (torch.func) once per linearization, and the forward
-and adjoint solves share it, as the reference does (emf=None).
+block). With element-wise isotropic material every per-design
+re-assembly of the cell operator goes through the affine basis (K2): the
+stiffness is exactly h*M1 + h^3*M3 per cell. A nodal thickness field is
+not affine per cell, and with a composite laminate the stiffness is not
+h*M1 + h^3*M3 (its A/B/D are fixed per cell, only drilling reads h), so
+there the cell operator and every MG level (each with its
+coarsened laminate) are assembled directly (torch.func) once per
+linearization, and the forward and adjoint solves share them, as the
+reference does (emf=None). The modal mass stays affine in element-wise h
+whatever the laminate. With a laminate, E and nu reach only the drilling
+term, the stresses and the DG1 projection.
 
 Shape and load inputs: `node_disp` (n_nodes, 3), the mesh-motion field
 uhat in the caller's node order, enters every form through the
@@ -58,11 +64,13 @@ eigenvalues differentiable in thickness, E, nu and density through the
 Rayleigh quotient at the converged modes; `node_disp` there is a fixed
 geometry.
 
-`record` is stored, as the reference stores it (it writes nothing).
+`record` is stored, as the reference stores it (it writes nothing);
+`additional_outputs` is accepted and ignored, as the reference ignores
+it.
 
 Not ported yet (ROADMAP.md, Queue 1), raising NotImplementedError before
-the device is looked at: composite laminates, other element types and
-dtypes. The model runs on the CUDA card unless
+the device is looked at: other element types and dtypes. The model runs
+on the CUDA card unless
 `device` names another; without a card and without `device` it raises
 (pass device="cpu" for the CPU).
 """
@@ -125,19 +133,34 @@ class DisplacementExtractionModel:
         return mat
 
 
+class ForceReshapingModel:
+    """(n_nodes, 3) nodal force matrix in the caller's node order -> the
+    interleaved VF dof vector in the FE order."""
+
+    def __init__(self, shell_pde: RMShellPDE):
+        self.shell_pde = shell_pde
+
+    def evaluate(self, nodal_force_mat):
+        igi = self.shell_pde.mesh.input_global_indices
+        mat = torch.as_tensor(nodal_force_mat, dtype=torch.float64,
+                              device=self.shell_pde.device)
+        if igi is not None:
+            mat = mat[torch.as_tensor(np.asarray(igi, dtype=np.int64),
+                                      device=mat.device)]
+        return mat.reshape(-1)
+
+
 class RMShellModel:
     def __init__(self, mesh, shell_bc_func=None, element_wise_material=False,
-                 rho=100, PENALTY_BC=True, mesh_tags=None, record=False,
-                 elementwise_pressure=False, element_type="CG2CG1",
-                 solver_opts=None, inplane_deg=4, shear_deg=4,
-                 composite_clt=None, device=None, dtype=torch.float64,
-                 mg_opts=None):
+                 rho=100, PENALTY_BC=True, additional_outputs=None,
+                 mesh_tags=None, record=False, elementwise_pressure=False,
+                 element_type="CG2CG1", solver_opts=None, inplane_deg=4,
+                 shear_deg=4, composite_clt=None, device=None,
+                 dtype=torch.float64, mg_opts=None):
         if shell_bc_func is None:
             raise ValueError(
                 "Please provide the shell bc location function.\n"
                 "Example: def ClampedBoundary(x): return x[:, 1] < 0.0")
-        if composite_clt is not None:
-            raise _not_ported("composite_clt")
         if dtype != torch.float64:
             raise _not_ported(f"dtype={dtype} (the solve runs in f64)")
         if element_type != "CG2CG1":
@@ -154,6 +177,7 @@ class RMShellModel:
         self.elementwise_pressure = elementwise_pressure
         self.element_type = element_type
         self.inplane_deg, self.shear_deg = inplane_deg, shear_deg
+        self.composite_clt = composite_clt
         self.nel = mesh.n_cells
         self.nn = mesh.n_nodes
         self.device = resolve_device(device)
@@ -223,7 +247,8 @@ class RMShellModel:
             self.mesh, element_wise_material=self.element_wise_material,
             elementwise_pressure=self.elementwise_pressure,
             element_type=self.element_type, inplane_deg=self.inplane_deg,
-            shear_deg=self.shear_deg, device=self.device)
+            shear_deg=self.shear_deg, composite=self.composite_clt,
+            device=self.device)
         fea = FEA(self.mesh, dtype=self.dtype, device=self.device)
         residual_form = pde.make_residual_form()
         facet_forms, bc_dofs = [], None
@@ -238,11 +263,13 @@ class RMShellModel:
                             ("density", pde.VT), ("uhat", pde.VU)]:
             fea.add_input(name, space)
 
-        # the MID-plane shell stiffness is exactly h*M1 + h^3*M3 per cell
-        # with element-wise thickness: each linearization re-assembles with
-        # one K2 combine; nodal thickness is assembled directly
+        # the MID-plane isotropic shell stiffness is exactly h*M1 + h^3*M3
+        # per cell with element-wise thickness: each linearization
+        # re-assembles with one K2 combine; nodal thickness and a laminate
+        # are assembled directly
         emf = (CachedAffineAssembler(residual_form)
-               if self.element_wise_material else None)
+               if self.element_wise_material and self.composite_clt is None
+               else None)
         fea.add_state("disp_solid", residual_form,
                       arguments=["thickness", "F_solid", "E", "nu", "uhat"],
                       solver_opts=opts, element_matrices_fn=emf,

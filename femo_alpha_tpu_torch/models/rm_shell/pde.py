@@ -23,8 +23,13 @@ space, MID reference plane, isotropic material):
 
 Material fields are element-wise (DG0) or nodal (CG1, the reference's
 default); the compliance's thickness regularization is L2 for the first
-and H1 for the second. The BOT reference plane and composite laminates
-are not ported yet (ROADMAP.md, Queue 1).
+and H1 for the second. The isotropic single-layer CLT sits on the MID
+reference plane or, with bot_plane=True, on the BOT plane (B = -h^2/2 C,
+D = h^3/3 C). A composite laminate (material.CompositeCLT: per-cell
+A/B/D/A_s in the mesh's FE cell order) replaces the single-layer CLT in
+the membrane, bending and shear energy; it reaches the kernels as FemForm
+cell constants. Drilling, mass, the stresses and the DG1 projection stay
+isotropic in (E, nu, h), as in the reference.
 """
 
 from __future__ import annotations
@@ -78,14 +83,17 @@ class RMShellPDE:
 
     def __init__(self, mesh, element_wise_material=False,
                  elementwise_pressure=False, element_type="CG2CG1",
-                 inplane_deg=4, shear_deg=4, stress_deg=4, composite=None,
-                 device=None):
+                 inplane_deg=4, shear_deg=4, stress_deg=4, bot_plane=False,
+                 composite=None, device=None):
         if element_type != "CG2CG1":
             raise _not_ported(f"element_type={element_type!r}")
-        if composite is not None:
-            raise _not_ported("composite_clt")
+        if composite is not None and composite.A.shape[0] != mesh.n_cells:
+            raise ValueError(f"composite laminate has {composite.A.shape[0]} "
+                             f"cells, the mesh {mesh.n_cells}")
         device = self.device = resolve_device(device)
         self.mesh = mesh
+        self.bot_plane = bot_plane
+        self.composite = composite
         self.element_wise_material = element_wise_material
         self.elementwise_pressure = elementwise_pressure
         self.V_disp = FunctionSpace(mesh, "P", 2, value_size=3)
@@ -166,8 +174,28 @@ class RMShellPDE:
             out["f_q"] = _interp_vec(self.VF, R["f_phi"], p["F_solid"])
         return out
 
-    def _clt(self, pt):
-        return single_layer_clt(pt["Eq"], pt["nuq"], pt["tq"])
+    def _clt(self, pt, p):
+        """(A, B, D, A_s) at the rule's quadrature points: the per-cell
+        composite arrays broadcast over the points, or the isotropic
+        single-layer CLT."""
+        if self.composite is not None:
+            nq = pt["tq"].shape[0]
+            return (p["clt_A"].expand(nq, 3, 3), p["clt_B"].expand(nq, 3, 3),
+                    p["clt_D"].expand(nq, 3, 3),
+                    p["clt_As"].expand(nq, 2, 2))
+        return single_layer_clt(pt["Eq"], pt["nuq"], pt["tq"],
+                                bot=self.bot_plane)
+
+    def _cell_consts(self):
+        """The laminate as FemForm cell constants on the PDE's device (made
+        per form, outside every transform), or None."""
+        if self.composite is None:
+            return None
+        c = self.composite
+        return {k: torch.as_tensor(v, dtype=torch.float64,
+                                   device=self.device)
+                for k, v in (("clt_A", c.A), ("clt_B", c.B), ("clt_D", c.D),
+                             ("clt_As", c.As))}
 
     @staticmethod
     def _strains(pt):
@@ -195,7 +223,7 @@ class RMShellPDE:
             pi = self._pointwise("inplane", u_cell, x_cell, p,
                                  need_f=with_load)
             eps, kappa, _, t_gu = self._strains(pi)
-            A, B, D, _ = self._clt(pi)
+            A, B, D, _ = self._clt(pi, p)
             ev = voigt2d(eps)
             kv = voigt2d(kappa)
             N = torch.einsum("qij,qj->qi", A, ev) + torch.einsum(
@@ -220,7 +248,7 @@ class RMShellPDE:
             # shear at the shear rule, with detF
             ps = self._pointwise("shear", u_cell, x_cell, p)
             _, _, gamma, _ = self._strains(ps)
-            As_s = self._clt(ps)[3]
+            As_s = self._clt(ps, p)[3]
             Q = torch.einsum("qij,qj->qi", As_s, gamma)
             E_sh = torch.sum(0.5 * torch.sum(Q * gamma, dim=1) * ps["detF"]
                              * ps["w"] * ps["dA"])
@@ -230,7 +258,8 @@ class RMShellPDE:
 
     def make_residual_form(self):
         return FemForm(self.W, self.make_elastic_energy_kernel(),
-                       kind="energy", param_specs=dict(self.param_specs))
+                       kind="energy", param_specs=dict(self.param_specs),
+                       cell_consts=self._cell_consts())
 
     def inertia_form(self, rho_is_param=True, with_uhat=False):
         """Shell inertia as an energy, 0.5 rho h (|u|^2 + h_m^2 |theta|^2)
@@ -366,7 +395,8 @@ class RMShellPDE:
         specs.pop("F_solid")
         return FemForm(self.W,
                        self.make_elastic_energy_kernel(with_load=False),
-                       kind="energy", param_specs=specs)
+                       kind="energy", param_specs=specs,
+                       cell_consts=self._cell_consts())
 
     # ------------------------------------------------------------ penalty BC
     def make_penalty_facet_form(self, bc_locs_func, quad_degree=4,

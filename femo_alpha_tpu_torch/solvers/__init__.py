@@ -2,6 +2,7 @@
 aggregation AMG and the linear-solver facade."""
 
 from .amg import AggregationAMG, AMGPrecondFactory
+from .direct import DenseSolver, dense_from_elements
 from .krylov import cg_solve, gmres_solve
 from .linear import LinearSolver
 from .multigrid import GeometricMG
@@ -12,7 +13,8 @@ from .precond import (
     mixed_block_jacobi,
 )
 
-__all__ = ["AggregationAMG", "AMGPrecondFactory", "cg_solve", "gmres_solve",
+__all__ = ["AggregationAMG", "AMGPrecondFactory", "DenseSolver",
+           "dense_from_elements", "cg_solve", "gmres_solve",
            "LinearSolver", "GeometricMG", "newton_solve",
            "jacobi_preconditioner", "mixed_block_jacobi",
            "block_jacobi_preconditioner"]

@@ -29,9 +29,10 @@ from __future__ import annotations
 import torch
 
 from ..assembly.assemble import make_constrained_matvec_T
+from ..assembly.bc import lift_rhs
 from torch.func import jacfwd, vjp
 
-from .direct import apply_bc_dense
+from .direct import DenseSolver, apply_bc_dense
 from .krylov import cg_solve, gmres_solve
 from .precond import jacobi_from_blocks
 
@@ -118,23 +119,15 @@ class LinearSolver:
         self.method = method
         self.extra_matvec = extra_matvec
         self.last_info = None
-        self._chol = self._lu = None
+        self._dense = None
         self._matvecT = None
         self.M = None
         if method == "dense":
             A = dense_from_blocks(ops, n_dofs)
             if extra_matvec is not None:
                 A = A + jacfwd(extra_matvec)(A.new_zeros(n_dofs))
-            A = apply_bc_dense(A, self.free_mask)
-            if symmetric:
-                L, info = torch.linalg.cholesky_ex(A)
-                if int(info) != 0:
-                    raise RuntimeError(
-                        f"LinearSolver: the dense constrained matrix is not "
-                        f"positive definite (Cholesky info {int(info)})")
-                self._chol = L
-            else:
-                self._lu = torch.linalg.lu_factor(A)
+            self._dense = DenseSolver(apply_bc_dense(A, self.free_mask),
+                                      spd=symmetric)
         elif M is not None:
             self.M = M
         elif pc == "jacobi":
@@ -163,6 +156,16 @@ class LinearSolver:
             self._matvecT = mvT
         return self._matvecT
 
+    def lift(self, b, bc_vals):
+        """The RHS for the constrained system whose solution carries the
+        BC values: free*(b - A g) + g with g = (1-free)*bc_vals, A the raw
+        (unconstrained) operator (assembly/bc.py::lift_rhs)."""
+        raw = _sum_of_blocks(self.ops, torch.ones_like(self.free_mask))
+        if self.extra_matvec is not None:
+            raw = _with_extra(raw, self.extra_matvec,
+                              torch.ones_like(self.free_mask))
+        return lift_rhs(raw, b, self.free_mask, bc_vals)
+
     def _krylov(self, op, b, x0):
         if self.method == "cg" and self.symmetric:
             return cg_solve(op, b, x0=x0, M=self.M, tol=self.tol,
@@ -171,19 +174,14 @@ class LinearSolver:
                            maxiter=max(2, self.maxiter // 50))
 
     def solve(self, b, x0=None):
-        if self._chol is not None:
-            return torch.cholesky_solve(b[:, None], self._chol)[:, 0]
-        if self._lu is not None:
-            return torch.linalg.lu_solve(*self._lu, b[:, None])[:, 0]
+        if self._dense is not None:
+            return self._dense.solve(b)
         x, self.last_info = self._krylov(self.matvec, b, x0)
         return x
 
     def solve_transpose(self, b, x0=None):
         """The adjoint solve: the forward one when symmetric."""
-        if self._chol is not None:
-            return self.solve(b)
-        if self._lu is not None:
-            return torch.linalg.lu_solve(*self._lu, b[:, None],
-                                         adjoint=True)[:, 0]
+        if self._dense is not None:
+            return self._dense.solve_transpose(b)
         x, self.last_info = self._krylov(self.matvecT, b, x0)
         return x

@@ -303,6 +303,9 @@ class MixedSpace(_LaneTables):
         return torch.cat([s.scatter_add_T(cell_vals_T[sl]) for s, sl in
                           zip(self.subspaces, self.local_slices)])
 
+    def function(self, array=None, name=None, device=None):
+        return Function(self, array=array, name=name, device=device)
+
 
 class Function:
     """A coefficient vector in a space: `.x` is an f64 tensor of n_dofs on

@@ -100,8 +100,11 @@ def test_kernel_wrappers_refuse_bad_input(case):
 @pytest.mark.parametrize("what", ["penalty", "unstructured", "dense",
                                   "composite", "nodal_material"])
 def test_unported_configurations_raise(what, monkeypatch):
-    """What each path still lacks: composite laminates raise. Nodal
-    material (the reference's default) evaluates on the MG path at 64x16:
+    """Configurations that once raised and are ported now. A composite
+    laminate (a real from_layup 1-ply laminate at 64x16, on the MG path
+    with every level assembled directly) gives the isotropic cantilever's
+    compliance anchor. Nodal material (the reference's default) evaluates
+    on the MG path at 64x16:
     uniform fields give the cantilever's compliance anchor less the L2
     regularization that only element-wise thickness carries (the H1 term
     of a uniform field is zero). Past the band memory guard (penalty BCs, or strong
@@ -125,7 +128,10 @@ def test_unported_configurations_raise(what, monkeypatch):
               element_wise_material=what != "nodal_material",
               PENALTY_BC=what == "penalty", device="cpu")
     if what == "composite":
-        kw["composite_clt"] = object()
+        from femo_alpha_tpu_torch.models import CompositeCLT
+
+        kw["composite_clt"] = CompositeCLT.from_layup(
+            mesh.n_cells, [4.32e8], [0.0], [-0.1, 0.1])
     if what == "dense":
         kw["solver_opts"] = {"method": "gmres", "pc": "jacobi"}
     if what in ("penalty", "unstructured"):
@@ -144,10 +150,13 @@ def test_unported_configurations_raise(what, monkeypatch):
         assert abs((float(out.compliance) + l2_reg) / 4.387e-3 - 1.0) < 1e-3
         assert bool(torch.isfinite(out.disp_solid).all())
         return
-    if what in ("dense", "penalty", "unstructured"):
+    if what in ("dense", "penalty", "unstructured", "composite"):
         model = RMShellModel(mesh, **kw)
         pde = model.fea.states["disp_solid"].pde
-        if what == "dense":
+        if what == "composite":
+            assert pde.element_matrices_fn is None and model.mg is not None
+            assert not any("affine_asm" in lev for lev in model.mg.levels)
+        elif what == "dense":
             assert pde.solver_opts == {"method": "gmres", "pc": "jacobi",
                                        "tol": 1e-12}
         else:
@@ -164,15 +173,14 @@ def test_unported_configurations_raise(what, monkeypatch):
         assert bool(torch.isfinite(out.compliance))
         info = pde.last_info["forward"]
         if what != "dense":
-            # the cantilever's compliance anchor (chip_smoke.J_ANCHOR)
+            # the cantilever's compliance anchor (chip_smoke.J_ANCHOR); the
+            # 1-ply laminate is the isotropic plate
             assert abs(float(out.compliance) / 4.387e-3 - 1.0) < 1e-3
             assert 0 < info["iters"] < pde.solver_opts["maxiter"]
             return
         assert info["cycles"] == max(2, min(max(500, 10 * pde.n_dofs),
                                             200_000) // 50)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        RMShellModel(mesh, **kw)
 
 
 def test_platesim_without_a_card_raises(monkeypatch):

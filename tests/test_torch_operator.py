@@ -246,7 +246,7 @@ def test_unported_configurations_raise_before_the_device(what, nx, ny,
         assert model.fea.states["disp_solid"].pde.last_info["forward"][
             "iters"] > 0
         return
-    unported = {"penalty": dict(composite_clt=object()),
+    unported = {"penalty": dict(element_type="CG2CR1"),
                 "no_hierarchy": dict(dtype=torch.float32)}[what]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         RMShellModel(_rect(nx, ny), shell_bc_func=_clamped,

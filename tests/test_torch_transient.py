@@ -1,35 +1,24 @@
 """The transient RM shell of the port (PlateSim: implicit midpoint,
 dense / Jacobi-PCG / MG-PCG step solves, the time-reversed adjoint through
-autograd, checkpointed online outputs) on the CPU, against the live JAX
-package and against the port's own dense path.
+autograd, checkpointed online outputs) on the CPU, against the JAX
+package's results and against the port's own dense path.
 
-Inputs are made with numpy from a seed and handed to both packages; f64
-throughout. The reference runs with its FEMO_* solver flags unset
-(FEMO_MG_F32, FEMO_LANE_MAJOR, FEMO_HOSTLOOP, FEMO_CG_DF, FEMO_OP_STORAGE);
-run with FEMO_COMPILE_CACHE=0 if its values look wrong (a stale compile
-cache once gave wrong numerics, ROADMAP.md Queue 3). Tolerances: 1e-12
-relative for forms, bases and vjp_theta (the same arithmetic in another
-order); 1e-10 for the displacement history and 1e-8 for gradients (both
-packages take the dense f64 Cholesky path on the 10x2 fixture of
+Inputs are made with numpy from a seed; f64 throughout. The JAX package's
+results at these inputs are pinned in tests/reference_digits/
+transient_10x2.npz by `tools/transient_reference_digits.py tests` (the
+JAX package on the CPU with its FEMO_* solver flags unset: FEMO_MG_F32,
+FEMO_LANE_MAJOR, FEMO_HOSTLOOP, FEMO_CG_DF, FEMO_OP_STORAGE). Tolerances:
+1e-12 relative for forms, bases and vjp_theta (the same arithmetic in
+another order); 1e-10 for the displacement history and 1e-8 for gradients
+(both packages take the dense f64 Cholesky path on the 10x2 fixture of
 tests/test_dynamic_shell.py); 1e-8 of the displacement scale between the
 port's iterative (tol 1e-11) and dense paths."""
+
+import os
 
 import numpy as np
 import pytest
 import torch
-
-import jax
-import jax.numpy as jnp
-
-from femo_alpha_tpu.assembly.affine import AffineDesignOperator as RefAffine
-from femo_alpha_tpu.assembly.assemble import element_matrices as ref_elmats
-from femo_alpha_tpu.mesh import createRectangleMesh as ref_rect
-from femo_alpha_tpu.models.dynamic_rm_shell import (
-    PlateSim as RefSim,
-    TotalStrainEnergyOperation as RefTSE,
-)
-from femo_alpha_tpu.models.rm_shell.pde import RMShellPDE as RefPDE
-from femo_alpha_tpu.spaces.pointeval import point_eval_rows as ref_rows
 
 from femo_alpha_tpu_torch.adjoint import check_totals
 from femo_alpha_tpu_torch.assembly.assemble import element_matrices
@@ -44,9 +33,9 @@ from femo_alpha_tpu_torch.models.rm_shell.pde import RMShellPDE
 from femo_alpha_tpu_torch.spaces.pointeval import point_eval_rows
 
 E_VAL, NU, RHO, DT, N = 4.32e8, 0.0, 10.0, 0.01, 20
-REF_FLAGS = ("FEMO_MG_F32", "FEMO_LANE_MAJOR", "FEMO_HOSTLOOP", "FEMO_CG_DF",
-             "FEMO_OP_STORAGE")
 X_TIP = (10.0, 1.0, 0.0)
+REF_NPZ = os.path.join(os.path.dirname(__file__), "reference_digits",
+                       "transient_10x2.npz")
 
 
 def _rel(a, b):
@@ -70,59 +59,26 @@ def _t(a):
 
 @pytest.fixture(scope="module")
 def reference():
-    """The JAX package's PlateSim on the 10x2 fixture (dense path)."""
-    with pytest.MonkeyPatch.context() as mp:
-        for flag in REF_FLAGS:
-            mp.delenv(flag, raising=False)
-        mesh = ref_rect(10, 2, (0, 0), (10, 2), "quad", gdim=3)
-        sim = RefSim(mesh, E_VAL, NU, RHO, dt=DT, Nsteps=N,
-                     element_wise_thickness=True, quad_deg=4)
-        sim.set_up_tip_dofs(np.asarray(X_TIP))
-        th_np, fh_np = _inputs(mesh.n_cells, mesh.n_nodes)
-        th, fh = jnp.asarray(th_np), jnp.asarray(fh_np)
-
-        def total(t, f):
-            wh = sim.simulate(t, f)
-            se = sim.strain_energy_history(wh, t)
-            return jnp.sum(se), (wh, se)
-
-        # one compile for the history, its energies and both gradients
-        (_, (wh, se)), (g_th, g_fh) = jax.value_and_grad(
-            total, argnums=(0, 1), has_aux=True)(th, fh)
-        d_fh = np.random.default_rng(1).standard_normal(fh_np.shape)
-        pn = sim.simulate_outputs(th, fh, segment_len=5,
-                                  stress_pnorm=(1e-6, 20))["pnorm_history"]
-        Ke, Me = sim._element_mats(th)
-        pde = sim.pde
-        rho_field = jnp.full(sim.num_var, 7.0)
-        Mp = ref_elmats(pde.inertia_form(rho_is_param=True),
-                        jnp.zeros(sim.fe_dofs),
-                        {"thickness": th, "density": rho_field})
-        rng = np.random.default_rng(2)
-        u, lam = (rng.standard_normal(sim.fe_dofs) for _ in range(2))
-        bases, vjps = {}, {}
-        for name, form, powers, extra in (
-                ("K", sim.K_form, (1, 3), sim._k_params(th)),
-                ("M", sim.M_form, (1,), {"rho": jnp.asarray(RHO)})):
-            def params_of(t, extra=extra):
-                return {**extra, "thickness": jnp.asarray(t)}
-
-            aff = RefAffine(form, jnp.zeros(sim.fe_dofs), params_of,
-                            powers=powers, probe_scale=0.2, layout="lane")
-            bases[name] = np.asarray(aff.basis)
-            vjps[name] = np.asarray(aff.vjp_theta(th, jnp.asarray(u),
-                                                  jnp.asarray(lam), sim.W))
-        tse = float(RefTSE(sim, regularization="L2").evaluate(wh, th))
-        return dict(
-            th=th_np, fh=fh_np, wh=np.asarray(wh), g_th=np.asarray(g_th),
-            d_fh=d_fh, dd_fh=float(np.sum(np.asarray(g_fh) * d_fh)),
-            se=np.asarray(se),
-            tips=np.asarray(jax.vmap(sim.tip_disp)(wh)), pn=np.asarray(pn),
-            Ke=np.asarray(Ke), Me=np.asarray(Me), Mp=np.asarray(Mp),
-            load=np.asarray(sim.assemble_load(fh[3])),
-            sw=np.asarray(sim.self_weight_vector(th)), u=u, lam=lam,
-            bases=bases, vjps=vjps, tse_l2=tse,
-            rows=ref_rows(pde.V_disp, [np.asarray(X_TIP)]))
+    """The JAX package's PlateSim on the 10x2 fixture (dense path), pinned
+    by tools/transient_reference_digits.py, beside the seeded inputs it
+    was given: the thickness and load history, a load-history direction
+    d_fh and two state-sized vectors u, lam."""
+    mesh = createRectangleMesh(10, 2, (0, 0), (10, 2), "quad", gdim=3)
+    th_np, fh_np = _inputs(mesh.n_cells, mesh.n_nodes)
+    d_fh = np.random.default_rng(1).standard_normal(fh_np.shape)
+    with np.load(REF_NPZ) as z:
+        ref = {k: z[k] for k in z.files}
+    rng = np.random.default_rng(2)
+    u, lam = (rng.standard_normal(ref["wh"].shape[1]) for _ in range(2))
+    return dict(
+        th=th_np, fh=fh_np, d_fh=d_fh, u=u, lam=lam,
+        wh=ref["wh"], g_th=ref["g_th"], dd_fh=float(ref["dd_fh"]),
+        se=ref["se"], tips=ref["tips"], pn=ref["pn"], Ke=ref["Ke"],
+        Me=ref["Me"], Mp=ref["Mp"], load=ref["load"], sw=ref["sw"],
+        bases={"K": ref["basis_K"], "M": ref["basis_M"]},
+        vjps={"K": ref["vjp_K"], "M": ref["vjp_M"]},
+        tse_l2=float(ref["tse_l2"]), h1_cells=ref["h1_cells"],
+        rows=[(int(ref["rows_cell"]), ref["rows_dofs"], ref["rows_w"])])
 
 
 def _port_sim(**kw):
@@ -183,17 +139,13 @@ def test_forms_match_reference(reference, port):
     assert float(h1(None, x, {"thickness": th[:1]})) == 0.0
     npde = RMShellPDE(pde.mesh, element_wise_material=False, inplane_deg=4,
                       device="cpu")
-    rpde = RefPDE(ref_rect(10, 2, (0, 0), (10, 2), "quad", gdim=3),
-                  inplane_deg=4)
     th_n = 0.1 + 0.05 * np.random.default_rng(5).random(npde.mesh.n_nodes)
     conn, xs = np.asarray(npde.mesh.conn), np.asarray(npde.mesh.coords)
     for c in range(npde.mesh.n_cells):
         v = npde.regularization_kernel("H1")(
             None, torch.as_tensor(xs[conn[c]]),
             {"thickness": torch.as_tensor(th_n[conn[c]])})
-        v_r = rpde.regularization_kernel("H1")(
-            None, jnp.asarray(xs[conn[c]]),
-            {"thickness": jnp.asarray(th_n[conn[c]])})
+        v_r = reference["h1_cells"][c]
         assert abs(float(v) / float(v_r) - 1.0) <= 1e-12
 
 

@@ -1,7 +1,7 @@
 """The JAX package's digits on the PAV wing thickness study, the constants
 OPT_DIGITS of chip_smoke.py's `opt` phase:
 
-    FEMO_PLATFORM=cpu FEMO_COMPILE_CACHE=0 python tools/opt_reference_digits.py
+    FEMO_PLATFORM=cpu FEMO_COMPILE_CACHE=0 python tools/opt_reference_digits.py [MAXITER]
 
 femo_alpha_tpu's OptimizationProblem (scipy SLSQP) on the problem of
 examples/advanced_examples/pav_shell_opt/ex_pav_wing_thickness_opt.py:
@@ -9,8 +9,8 @@ RMShellModel with penalty BCs and the file's mesh tags on
 tests/data/pav_like_wing_2388.msh (2,388 quads, 35,370 dofs), E 71.7e9,
 nu 0.33, rho 2780, the elliptic 4,000 Pa lift pressure; min mass/mass0
 subject to aggregated_stress <= 503e6/1.5 (scaler 1.5/503e6), 2,388
-thicknesses in [0.001, 0.02] from h0 = 0.005, ftol 1e-8, maxiter as
-chip_smoke.py's OPT_MAXITER. It prints the scaled objective at each SLSQP
+thicknesses in [0.001, 0.02] from h0 = 0.005, ftol 1e-8, maxiter
+MAXITER (by default 2, chip_smoke.py's OPT_MAXITER). It prints the scaled objective at each SLSQP
 iteration (callback order), the final mass and aggregated stress, and
 nit / nfev / njev, with the scipy version (the SLSQP trajectory depends
 on it). Runs eagerly (jit=False: the same numbers without compiling the
@@ -34,7 +34,7 @@ from femo_alpha_tpu.mesh import readFEAMesh  # noqa: E402
 from femo_alpha_tpu.models import RMShellModel  # noqa: E402
 from femo_alpha_tpu.opt import OptimizationProblem  # noqa: E402
 
-MAXITER = 3
+MAXITER = 2
 
 
 class RecordingProblem(OptimizationProblem):
@@ -86,12 +86,13 @@ def main():
                         scaler=safety / sigma_y)
     prob.set_objective("mass", scaler=1.0 / mass0)
     xs = []
-    dvs, res = prob.solve(maxiter=MAXITER, ftol=1e-8,
+    maxiter = int(sys.argv[1]) if len(sys.argv) > 1 else MAXITER
+    dvs, res = prob.solve(maxiter=maxiter, ftol=1e-8,
                           callback=lambda xk: xs.append(np.array(xk)),
                           report=False)
     hist = [prob.seen[x.tobytes()] for x in xs]
     out = ev({"thickness": jnp.asarray(dvs["thickness"])})
-    print(f"scipy {scipy.__version__}")
+    print(f"scipy {scipy.__version__}, maxiter {maxiter}")
     print(f"mass0 {mass0:.15e}")
     print("history " + " ".join(f"{v:.15e}" for v in hist))
     print(f"mass {float(out.mass):.15e}")
