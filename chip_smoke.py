@@ -32,8 +32,9 @@ same assembled penalty system, a central difference of the gradient, and
 two band factors of one system bit for bit, and requires that a fresh
 model's evaluate + backward repeats the first one's bits. Then it drives the
 transient shell — PlateSim on the repo's transient workload
-(tools/transient_bench.py: the 40x20 plate, 12,546 dofs, 50 implicit-
-midpoint steps of a 1-cos gust), simulate_outputs + backward through
+(tools/transient_bench.py: the 40x20 plate, 12,546 dofs, implicit-
+midpoint steps of a 1-cos gust, cut from 50 to 30 steps), simulate_outputs
++ backward through
 MG-preconditioned step solves — requires that it went through the fused
 operator and K2 and never through the standalone K1, and checks it against
 the JAX package's digits, its own history path, a dense f64 Cholesky of
@@ -67,13 +68,13 @@ wing under nodal forces (is_pressure=False: the force-to-pressure
 Jacobi-PCG over the fused operator on the VF mass form), its stress
 gradient in thickness and forces against the JAX digits and a central
 difference, and once moved in-plane. Then the default configuration past
-the band memory guard: WingBench at 50x200 (301,482 dofs, penalty BCs),
+the band memory guard: WingBench at 40x160 (193,182 dofs, penalty BCs),
 for which RMShellModel selects the aggregation AMG with its penalty split
 on its own — a first call and one repeat bit for bit, checked against
 bench.py's gate, a host SuperLU solve and a central difference; the
 per-design AMG setup piece by piece, CG iterations, ms per iteration, the
 AMG apply's host and device time, and K1 on the real Schwarz blocks
-(nd 39, nc 20,096) — then the 18x66 wing on the AMG against the JAX
+(nd 39, nc 12,876) — then the 18x66 wing on the AMG against the JAX
 package's digits and CG iterations; and LibraryBench(128, 32) with the
 W-cycle and the Schwarz smoother against the JAX digits and iterations
 and SuperLU. K1 must launch on both paths. Then nodal (CG1) thickness, the
@@ -98,7 +99,17 @@ regularization) against the JAX digits and a central difference of J less
 that term in one cell's thickness, and a bit-for-bit warm repeat, with
 the 1-ply laminate held to the isotropic model's
 compliance; the fused operator must launch and K2 never. Then the
-generic FEA library:
+CG1CG1 and CG2CR1 shell elements (benchmarks.ELEMENT_PLATES): CG1CG1 with
+reduced shear (inplane_deg 2, shear_deg 1) on the 256x64 strong-BC plate
+(100,230 dofs, nd 24, MG on 4 levels, each with its affine basis and K2)
+and CG2CR1 on the 128x32 triangle plate with penalty BCs (87,459 dofs,
+nd 27, the band Cholesky the reference's memory guard selects), each a
+first evaluate + compliance.backward() and three warm calls at a new
+design, against the JAX digits, preconditioner and CG passes, the
+quality gate, a host SuperLU solve, a central difference of the
+state-dependent part of dJ/dh and the warm calls' bits, with the fused
+operator (cell and facet blocks) and K2 at nd 24 / 27 against their
+twins. Then the generic FEA library:
 PoissonModel P1 at the scale point's size (1024x1024 triangles,
 1,050,625 dofs, nd 3) through Jacobi-CG, evaluate + compliance backward,
 against a host SuperLU solve, the JAX digits and a central difference,
@@ -167,9 +178,12 @@ WING_DIGITS = {"aggregated_stress": (4.308117861e+08, 1e-8),
 WING_FD_BAR = 1e-5
 # the JAX package (femo_alpha_tpu PlateSim, dense step solves, f64, the
 # energy form summed over the steps) at the inputs of phase_transient,
-# h = 0.1 (tools/transient_reference_digits.py)
-TRANSIENT_DIGITS = {"total_strain_energy": (1.146077323358996e+01, 1e-8),
-                    "grad_norm": (1.042655141329599e+01, 1e-6)}
+# h = 0.1, TRANSIENT_STEPS steps (tools/transient_reference_digits.py
+# dense 30; the bench's workload runs 50, cut here for the script's time
+# aim)
+TRANSIENT_STEPS = 30
+TRANSIENT_DIGITS = {"total_strain_energy": (1.936340757218705e+00, 1e-8),
+                    "grad_norm": (2.100435220781442e+00, 1e-6)}
 TRANSIENT_FD_BAR = 1e-5
 
 # the JAX package (femo_alpha_tpu OptimizationProblem, scipy SLSQP) on the
@@ -319,6 +333,41 @@ COMPOSITE_DIGITS = {"compliance": (7.878443434666539e-03, 1e-8),
 COMPOSITE_PASSES = {"forward": [[25, 7], [25, 9]],
                     "adjoint": [[25, 7], [25, 9]]}
 COMPOSITE_ONE_PLY_BAR = 1e-9  # the 1-ply laminate against the isotropic model
+# the CG1CG1 and CG2CR1 shell elements (benchmarks.ELEMENT_PLATES and
+# element_inputs: f_z = 2, E = 4.32e8, nu = 0, rho = 100 per cell; design 0
+# h = 0.2, design 1 a smooth per-cell profile), element-wise, each design's
+# evaluate + compliance backward from zero: compliance, |dJ/dh|, the
+# preconditioner the reference selects, and the CG iterations of the
+# forward and adjoint solves per pass, {solve: [first, restart]} at
+# design 0 then design 1, of the JAX runs (tools/elements_reference_
+# digits.py cg1 and cr on 8 CPU threads, cg1-one-core pinned to one core;
+# FEMO_SETUP_CACHE=0). On elements_cg1 (MG) both passes follow rounding:
+# each must lie within the JAX runs' span widened by benchmarks.
+# MG_PASS_SLACK, the rule of tests/test_torch_elements.py; on elements_cr
+# (the band Cholesky: [2, 1] per solve) both must equal the JAX run's.
+ELEMENTS_DIGITS = {
+    "elements_cg1": {"precond": "ShellMGPrecond", "mg_levels": 4,
+                     "design0_compliance": (4.387332091360343e-03, 1e-8),
+                     "design0_grad_norm": (2.490484019323668e-04, 1e-6),
+                     "design1_compliance": (4.414466408000257e-03, 1e-8),
+                     "design1_grad_norm": (2.526896710173582e-04, 1e-6)},
+    "elements_cr": {"precond": "BandPrecond", "mg_levels": None,
+                    "design0_compliance": (4.387403111148099e-03, 1e-8),
+                    "design0_grad_norm": (3.522027385741071e-04, 1e-6),
+                    "design1_compliance": (4.414598921411913e-03, 1e-8),
+                    "design1_grad_norm": (3.573505032366579e-04, 1e-6)},
+}
+ELEMENTS_PASSES = {
+    "elements_cg1": [
+        [{"forward": [32, 12], "adjoint": [38, 12]},
+         {"forward": [113, 14], "adjoint": [115, 12]}],
+        [{"forward": [32, 14], "adjoint": [38, 13]},
+         {"forward": [113, 13], "adjoint": [115, 12]}]],
+    "elements_cr": [
+        [{"forward": [2, 1], "adjoint": [2, 1]},
+         {"forward": [2, 1], "adjoint": [2, 1]}]],
+}
+ELEMENTS_FD_BAR = 1e-5
 # examples/basic_examples/beam_thickness_opt at nel = 50: the OpenMDAO
 # golden optimum (tests/test_beam.py, bar 1e-6) and the JAX run's SLSQP
 # counts, scipy 1.17.0 (printed beside the port's: the trajectory's tail
@@ -828,10 +877,13 @@ def _device_busy(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not ev:
+    # the trace's raw events: prof.events() would build a Python event
+    # tree first, ~50 s for the 250,000 operations of a 100k-dof MG call
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA]
+    if not ns:
         return None, None
-    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    return len(ns), sum(ns) / 1e6
 
 
 def _device_ops(fn):
@@ -1063,8 +1115,8 @@ def phase_wing(ck):
 
 def phase_transient(ck):
     """The transient shell on the card: PlateSim on the repo's transient
-    workload (tools/transient_bench.py, not cut), simulate_outputs and the
-    backward of total_strain_energy through MG-PCG step solves."""
+    workload (tools/transient_bench.py, cut from 50 to TRANSIENT_STEPS
+    steps), simulate_outputs and the backward of total_strain_energy through MG-PCG step solves."""
     import numpy as np
     import torch
 
@@ -1073,7 +1125,7 @@ def phase_transient(ck):
     from femo_alpha_tpu_torch.models.dynamic_rm_shell import PlateSim
 
     t_phase = time.perf_counter()
-    h0, nsteps, seg = 0.1, 50, 5
+    h0, nsteps, seg = 0.1, TRANSIENT_STEPS, 5
     mesh = createRectangleMesh(40, 20, (0, 0), (10.0, 2.0), "quad", gdim=3)
     nel = mesh.n_cells
     kw = dict(E=4.32e8, nu=0.0, rho=100.0, dt=0.01, Nsteps=nsteps,
@@ -2440,13 +2492,11 @@ def phase_beam(ck):
 
 # The default configuration past the band memory guard: WingBench (the
 # workload of tools/wing_bench.py: penalty BCs, elliptic 2,000 Pa lift,
-# E 69e9, nu 0.33, rho 2,700, h 0.006) at 50x200 with ribs at 66 and 133
-# and shuffle 3 — 20,096 cells, 301,482 dofs, band estimate 22.7 GB — so
-# RMShellModel selects AMGPrecondFactory on its own. If its CG reaches
-# maxiter there, the phase runs at 40x160 (193,182 dofs, still past the
-# guard) instead and says so (ROADMAP.md, Queue 3).
-AMG_MESH = (50, 200)
-AMG_FALLBACK_MESH = (40, 160)
+# E 69e9, nu 0.33, rho 2,700, h 0.006) at 40x160 with ribs at 53 and 106
+# and shuffle 3 — 12,876 cells, 193,182 dofs, band estimate 13.66 GB — so
+# RMShellModel selects AMGPrecondFactory on its own (cut from 50x200,
+# 301,482 dofs, to keep the script under its time aim).
+AMG_MESH = (40, 160)
 AMG_FD_BAR = 1e-5
 # the JAX package's AMG on WingBench's 18x66 (36,162 dofs; the guard forced
 # low for this sub-step), first call from zero: tools/amg_reference_digits.py
@@ -2552,7 +2602,7 @@ def _amg_wing(mesh_nc_ns, force_amg=False):
 
 def phase_amg(ck):
     """The default configuration past the band memory guard on the card:
-    WingBench at 50x200 (301,482 dofs) through the aggregation AMG with its
+    WingBench at 40x160 (193,182 dofs) through the aggregation AMG with its
     penalty split and Schwarz smoother (K1 on every smoothing step), then
     the 18x66 wing on the AMG against the JAX package's digits."""
     import numpy as np
@@ -2562,40 +2612,29 @@ def phase_amg(ck):
     from femo_alpha_tpu_torch.utils.quality import residual_and_floor
 
     t_phase = time.perf_counter()
-    mesh_used, note = AMG_MESH, "none"
-    for attempt in (AMG_MESH, AMG_FALLBACK_MESH):
-        mesh_used = attempt
-        b, setup_s = _amg_wing(attempt)
-        pde = b.pde
-        if type(pde._pc).__name__ != "AMGPrecondFactory":
-            fail(f"amg: {attempt} selected {type(pde._pc).__name__}, not "
-                 "AMGPrecondFactory")
-        n, nel = pde.n_dofs, b.mesh.n_cells
-        maxiter = pde.solver_opts["maxiter"]
+    b, setup_s = _amg_wing(AMG_MESH)
+    pde = b.pde
+    if type(pde._pc).__name__ != "AMGPrecondFactory":
+        fail(f"amg: {AMG_MESH} selected {type(pde._pc).__name__}, not "
+             "AMGPrecondFactory")
+    n, nel = pde.n_dofs, b.mesh.n_cells
+    maxiter = pde.solver_opts["maxiter"]
 
-        def first_call():
-            b.model.model._last_states = {}  # from zero, as the first call
-            out, g = b.forward_adjoint(b.th0)
-            torch.cuda.synchronize()
-            return out, g
+    def first_call():
+        b.model.model._last_states = {}  # from zero, as the first call
+        out, g = b.forward_adjoint(b.th0)
+        torch.cuda.synchronize()
+        return out, g
 
-        torch.cuda.reset_peak_memory_stats()
-        ck.reset_launch_counts()
-        t0 = time.perf_counter()
-        out0, g0 = first_call()
-        first_s = time.perf_counter() - t0
-        info = {k: dict(v) for k, v in pde.last_info.items()}
-        if max(info[k]["iters"] for k in info) < maxiter:
-            break
-        note = (f"{attempt} reached maxiter {maxiter}: iters "
-                f"{json.dumps({k: v['iters'] for k, v in info.items()})}, "
-                f"resnorm {json.dumps({k: v['resnorm'] for k, v in info.items()})}")
-        say("amg_maxiter", mesh=f"{attempt[0]}x{attempt[1]}", note=repr(note))
-        if attempt == AMG_FALLBACK_MESH:
-            fail(f"amg: {note}")
-        del b, pde, out0, g0
-        gc.collect()
-        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    out0, g0 = first_call()
+    first_s = time.perf_counter() - t0
+    info = {k: dict(v) for k, v in pde.last_info.items()}
+    if max(info[k]["iters"] for k in info) >= maxiter:
+        fail(f"amg: {AMG_MESH} reached maxiter {maxiter}: "
+             f"{json.dumps({k: v['iters'] for k, v in info.items()})}")
     u0 = out0.disp_solid.detach().clone()
     # one repeat from zero, bit for bit (the second repeat is cut to keep
     # the script under its time aim)
@@ -2642,7 +2681,7 @@ def phase_amg(ck):
     # so the gate passes on its nodal clause
     verdict = quality_verdict(rel_res, res_floor, nodal)
     amg = pde._pc.amg
-    say("amg", mesh=f"{mesh_used[0]}x{mesh_used[1]}", cells=nel, n_dofs=n,
+    say("amg", mesh=f"{AMG_MESH[0]}x{AMG_MESH[1]}", cells=nel, n_dofs=n,
         band_estimate_gb=f"{b.model.band_estimate_gb:.2f}",
         precond=type(pde._pc).__name__, n_agg=amg.n_agg,
         coarse_dofs=amg.nc_dofs, model_setup_s=f"{setup_s:.2f}",
@@ -2667,7 +2706,7 @@ def phase_amg(ck):
         fd_rel_err=f"{fd_err:.3e}",
         repeats_bitwise_equal=not differ, repeats=len(again),
         peak_mem_gb=f"{peak_gb:.3f}", launches=json.dumps(launches),
-        k1_at_schwarz=json.dumps(k1_case), fallback=repr(note))
+        k1_at_schwarz=json.dumps(k1_case))
     finite = bool(torch.isfinite(u0).all()) and bool(torch.isfinite(g0).all())
     if not finite or u0.shape != (n,) or g0.shape != (nel,):
         fail("amg: non-finite or mis-shaped displacement / gradient")
@@ -3343,6 +3382,207 @@ def phase_composite(ck):
     return launches
 
 
+def phase_elements(ck, name):
+    """The CG1CG1 or the CG2CR1 shell element on the card, at the full
+    width of benchmarks.ELEMENT_PLATES[name] (`elements_cg1`: the 256x64
+    CG1CG1 plate with reduced shear and the strong clamp, 100,230 dofs,
+    MG on 4 levels; `elements_cr`: the 128x32 CG2CR1 triangle plate with
+    penalty BCs, 87,459 dofs, the band Cholesky under the default guard),
+    element-wise material through the affine basis and K2: a first
+    evaluate + compliance.backward() at design 0 and three warm calls at
+    a new design (element_inputs' design 1), each from zero, against the
+    JAX digits, preconditioner and CG passes, the quality gate, a host
+    SuperLU solve, a Richardson central difference of J less its L2
+    regularization along a seeded direction of the thickness, and the
+    warm calls' bits; the fused operator (cell and, with penalty BCs,
+    facet block) and K2 at the fine level's shapes against their twins.
+    Returns (launches, kernel cases)."""
+    import numpy as np
+    import torch
+
+    from femo_alpha_tpu_torch.benchmarks import (
+        MG_PASS_SLACK,
+        cg_passes_agree,
+        element_inputs,
+        element_plate,
+        l2_regularization_grad,
+        quality_verdict,
+    )
+    from femo_alpha_tpu_torch.utils.quality import residual_and_floor
+
+    t_phase = time.perf_counter()
+    want = ELEMENTS_DIGITS[name]
+    kw = dict(dtype=torch.float64, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh, model = element_plate(name)  # no device=: the card by default
+    setup_s = time.perf_counter() - t0
+    pde = model.fea.states["disp_solid"].pde
+    if model.device.type != "cuda":
+        fail(f"{name}: RMShellModel without device= runs on {model.device}")
+    pc = type(pde._pc).__name__
+    mg = getattr(model, "mg", None)
+    if pc != want["precond"] or pde.element_matrices_fn is None or \
+            (mg is not None and (len(mg.levels) != want["mg_levels"] or not
+                                 all("affine_asm" in lev
+                                     for lev in mg.levels[1:]))):
+        fail(f"{name}: want {want['precond']} (the JAX run's) on the affine "
+             f"path, got {pc}, emf {pde.element_matrices_fn}, mg {mg}")
+    nel = mesh.n_cells
+    (f, th0, E, nu, rho), (_, th1, _, _, _) = (
+        [torch.as_tensor(a, **kw) for a in element_inputs(mesh, d)]
+        for d in (0, 1))
+
+    def run(th, backward=True):
+        model.model._last_states = {}  # from zero, as the JAX run
+        tht = th.clone().requires_grad_(backward)
+        out = model.evaluate(f, tht, E, nu, rho)
+        J = out.compliance
+        if backward:
+            J.backward()
+        torch.cuda.synchronize()
+        return J.detach(), out.disp_solid.detach(), tht.grad
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    J0, _, g0 = run(th0)
+    first_s = time.perf_counter() - t0
+    passes = [{k: v["passes"] for k, v in pde.last_info.items()}]
+    warm, calls = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        calls.append(run(th1))
+        warm.append(time.perf_counter() - t0)
+    launches = ck.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    passes.append({k: v["passes"] for k, v in pde.last_info.items()})
+    J1, u1, g1 = calls[0]
+    bitwise = all(torch.equal(a, b) for c in calls[1:]
+                  for a, b in zip(calls[0], c))
+    del calls[1:]
+    t0 = time.perf_counter()
+    ops_warm, device_ms = _device_busy(lambda: run(th1))
+    profile_s = time.perf_counter() - t0
+
+    params = model.fe_inputs(f, th1, E, nu)
+    t0 = time.perf_counter()
+    w = torch.as_tensor(l2_regularization_grad(mesh, np.ones(nel)), **kw)
+    d = torch.as_tensor(np.random.default_rng(17).standard_normal(nel), **kw)
+    with torch.no_grad():
+        rel_res, res_floor = residual_and_floor(pde, params, u1)
+
+        def J_at(e):
+            # from the state at design 1 (the model's warm start): the
+            # solves' rounding errors cancel in the differences
+            model.model._last_states = {"disp_solid": u1}
+            th = th1 + e * d
+            J_ = model.evaluate(f, th, E, nu, rho).compliance
+            return float(J_) - 0.5 * float(w @ th ** 2)
+
+        eps = 1e-2 * 0.2 / float(torch.linalg.norm(d, ord=float("inf")))
+        fd = (4.0 * _fd(J_at, eps) - _fd(J_at, 2.0 * eps)) / 3.0
+        ad = float((g1 - w * th1) @ d)
+        fd_err = abs(fd - ad) / abs(fd)
+        fd_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # the kernels at the fine level's shapes, on a seeded vector
+        basis = pde.element_matrices_fn.prepare(params)
+        ops = pde._assemble_ops(torch.zeros_like(u1), params,
+                                emf_basis=basis)
+        x = torch.randn(pde.n_dofs, generator=torch.Generator(device="cuda")
+                        .manual_seed(19), **kw)
+        ones = torch.ones(pde.n_dofs, **kw)
+        kerr, kcases = {}, []
+        for i, (Ae, spec) in enumerate(zip(ops, pde._op_specs)):
+            label = "fused/cell" if i == 0 else "fused/facet"
+            kerr[label], case = fused_case_bits(
+                ck, f"{label}/{name}", Ae, spec,
+                pde.free_mask if i == 0 else ones, x)
+            kcases.append(case)
+        kerr["k2"], case = k2_case(ck, f"k2/{name}", basis, th1, (1, 3))
+        kcases.append(case)
+        nd = int(ops[0].shape[0])
+        del ops, basis
+        kernels_s = time.perf_counter() - t0
+    nodal, direct_s = _host_direct(pde, params, u1, spd=True)
+    verdict = quality_verdict(rel_res, res_floor, nodal)
+    got = {"design0_compliance": float(J0),
+           "design0_grad_norm": float(torch.linalg.norm(g0)),
+           "design1_compliance": float(J1),
+           "design1_grad_norm": float(torch.linalg.norm(g1))}
+    errs = {k: abs(got[k] / want[k][0] - 1.0) for k in got}
+    finite = (bool(torch.isfinite(u1).all())
+              and bool(torch.isfinite(g1).all()))
+    shapes_ok = u1.shape == (pde.n_dofs,) and g1.shape == (nel,)
+    n_dofs = pde.n_dofs
+    route = {"precond": pc, "mg_levels": None if mg is None
+             else len(mg.levels),
+             "band_estimate_gb": getattr(model, "band_estimate_gb", None)}
+    del model, pde, u1, g0, g1, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(name, mesh=f"{mesh.nx}x{mesh.ny}" if hasattr(mesh, "nx") else
+        f"{nel} cells", cell_type=mesh.cell_type, cells=nel, n_dofs=n_dofs,
+        nd=nd, route=json.dumps(route), setup_s=f"{setup_s:.3f}",
+        first_call_s=f"{first_s:.3f}",
+        warm_s=json.dumps([round(t, 4) for t in warm]),
+        warm_median_s=f"{statistics.median(warm):.4f}",
+        warm_spread=f"{(max(warm) - min(warm)) / statistics.median(warm):.3f}",
+        device_ops_per_warm_call=ops_warm,
+        device_ms_per_warm_call=None if device_ms is None
+        else f"{device_ms:.1f}",
+        device_busy_share=None if device_ms is None
+        else f"{device_ms / 1e3 / statistics.median(warm):.3f}",
+        peak_gb=f"{peak_gb:.3f}",
+        **{k: f"{v:.15e}" for k, v in got.items()},
+        rel_err_vs_jax=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}),
+        cg_passes=json.dumps(passes), jax_cg_passes=json.dumps(
+            ELEMENTS_PASSES[name]),
+        rel_res=f"{rel_res:.3e}", res_floor=f"{res_floor:.3e}",
+        quality=verdict, nodal_err_vs_direct=f"{nodal:.3e}",
+        direct_s=f"{direct_s:.1f}", fd=f"{fd:.9e}", adjoint=f"{ad:.9e}",
+        fd_rel_err=f"{fd_err:.3e}", warm_repeat_bitwise_equal=bitwise,
+        profile_s=f"{profile_s:.1f}", fd_s=f"{fd_s:.1f}",
+        kernels_s=f"{kernels_s:.1f}",
+        launches=json.dumps(launches), kernels=json.dumps(kcases),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if not finite or not shapes_ok:
+        fail(f"{name}: non-finite or mis-shaped displacement / gradient")
+    for k, err in errs.items():
+        bar = 1e-8 if k.endswith("compliance") else 1e-6
+        if not err <= bar:
+            fail(f"{name} {k} {got[k]:.15e} vs the JAX package's "
+                 f"{want[k][0]:.15e} (bar {bar})")
+    runs = ELEMENTS_PASSES[name]
+    slack = MG_PASS_SLACK if want["precond"] == "ShellMGPrecond" else (0, 0)
+    for design, got_d in enumerate(passes):
+        for solve, got_p in got_d.items():
+            if not cg_passes_agree(got_p, [r[design][solve] for r in runs],
+                                   slack):
+                fail(f"{name}: CG passes {passes} vs the JAX runs' {runs} "
+                     f"(each pass within their span, widened by {slack})")
+    if verdict != "OK":
+        fail(f"{name}: quality {verdict} (rel_res {rel_res:.3e}, floor "
+             f"{res_floor:.3e}, nodal {nodal:.3e})")
+    if not nodal <= NODAL_BAR:
+        fail(f"{name}: nodal error vs SuperLU {nodal:.3e} > {NODAL_BAR:.0e}")
+    if not fd_err <= ELEMENTS_FD_BAR:
+        fail(f"{name} FD {fd:.9e} vs adjoint {ad:.9e}: rel {fd_err:.3e}")
+    if not bitwise:
+        fail(f"{name}: the warm calls' bits differ")
+    for k, err in kerr.items():
+        bar = K2_BAR["float64"] if k == "k2" else FUSED_BAR["float64"]
+        if not err <= bar:
+            fail(f"{name} {k}: rel err {err:.3e} vs the twin > {bar}")
+    if launches["affine_combine"] <= 0 or \
+            launches["constrained_matvec_T"] <= 0:
+        fail(f"{name}: want the fused operator and K2 launched: {launches}")
+    return launches, kcases
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -3373,6 +3613,8 @@ def main():
     by_path["mg_w"] = phase_mg_w(ck)
     by_path["nodal"] = phase_nodal(ck)
     by_path["composite"] = phase_composite(ck)
+    by_path["elements_cg1"], cg1_cases = phase_elements(ck, "elements_cg1")
+    by_path["elements_cr"], cr_cases = phase_elements(ck, "elements_cr")
     by_path["poisson"], poisson_cases = phase_poisson(ck)
     by_path["nonlinear"] = phase_nonlinear(ck)
     by_path["elasticity"], elasticity_case = phase_elasticity(ck)
@@ -3400,13 +3642,18 @@ def main():
          "at_poisson": _case_numbers(poisson_cases[0]),
          "at_nonsym": _case_numbers(poisson_cases[1]),
          "at_nonsym_T": _case_numbers(poisson_cases[2]),
-         "at_elasticity": _case_numbers(elasticity_case)},
+         "at_elasticity": _case_numbers(elasticity_case),
+         "at_cg1": _case_numbers(cg1_cases[0]),
+         "at_cr": _case_numbers(cr_cases[0]),
+         "at_cr_facet": _case_numbers(cr_cases[1])},
         {"name": "affine_combine", "route": "cuda",
          "source": "femo_alpha_tpu_torch/assembly/csrc/affine_combine.cu",
          "replaces": "femo_alpha_tpu/assembly/pallas_kernels.py:149",
          "launches": launches["affine_combine"],
          "launches_by_path": {k: p["affine_combine"] for k, p in by_path.items()},
-         **k2, "at_nc_65536": at_scale[1]},
+         **k2, "at_nc_65536": at_scale[1],
+         "at_cg1": _case_numbers(cg1_cases[-1]),
+         "at_cr": _case_numbers(cr_cases[-1])},
     ]
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

@@ -241,15 +241,89 @@ def composite_laminate(mesh, h=0.2, E=4.32e8, nu=0.3, x_split=10.0 / 3.0):
                           for k in ("A", "B", "D", "As")))
 
 
+# The element configurations of chip_smoke.py's `elements_cg1` and
+# `elements_cr` phases: (nx, ny, cell type) of the createRectangleMesh
+# 10 x 2 plate and RMShellModel's keywords beside shell_bc_func (the clamp
+# at x = 0) and element_wise_material=True. elements_cg1 is the reference
+# test's "fixed" CG1CG1 model (reduced shear) with the strong clamp: 100,230
+# dofs, geometric MG on 4 levels; elements_cr is CG2CR1 with penalty BCs,
+# the reference's default: 87,459 dofs, the band Cholesky under the default
+# band memory guard.
+ELEMENT_PLATES = {
+    "elements_cg1": ((256, 64, "quad"),
+                     dict(element_type="CG1CG1", PENALTY_BC=False,
+                          inplane_deg=2, shear_deg=1)),
+    "elements_cr": ((128, 32, "triangle"),
+                    dict(element_type="CG2CR1", PENALTY_BC=True)),
+}
+
+
+def element_plate(name, device=None):
+    """(mesh, model): the port's RMShellModel of ELEMENT_PLATES[name] on its
+    plate."""
+    from .mesh import createRectangleMesh
+    from .models import RMShellModel
+
+    (nx, ny, cell), kw = ELEMENT_PLATES[name]
+    mesh = createRectangleMesh(nx, ny, (0, 0), (10.0, 2.0), cell, gdim=3)
+    return mesh, RMShellModel(mesh, shell_bc_func=_clamped_x0,
+                              element_wise_material=True, device=device,
+                              **kw)
+
+
+def element_inputs(mesh, design=0):
+    """The element phases' inputs, numpy in the FE order: the nodal
+    pressure f_z = 2 (n_nodes, 3) and, per cell, the thickness, E = 4.32e8,
+    nu = 0 and rho = 100. design 0: h = 0.2; design 1 (the warm call's new
+    design): nodal_thickness's profile at the cell centroids with amplitude
+    0.2."""
+    nn, nel = mesh.n_nodes, mesh.n_cells
+    f = np.zeros((nn, 3))
+    f[:, 2] = 2.0
+    if design == 0:
+        th = np.full(nel, 0.2)
+    else:
+        xc = np.asarray(mesh.coords)[np.asarray(mesh.conn)].mean(axis=1)
+        th = nodal_thickness(xc, amplitude=0.2)
+    return (f, th, np.full(nel, 4.32e8), np.zeros(nel), np.full(nel, 100.0))
+
+
+# How far each CG pass of a geometric-MG solve of the element plates may
+# lie from the span of the JAX runs' passes: (first pass, restart pass).
+# Both follow rounding there. The first pass stops where the recurrence
+# residual, falling ~0.8 per iteration, crosses the target; the restart
+# pass starts from the true residual at the f64 evaluation floor. Set from
+# the readings in PERF.md: at most +3 and +5 on the H100, 0 and +1
+# on the CPU. The band's passes must equal the JAX runs' (slack (0, 0)).
+MG_PASS_SLACK = (5, 8)
+
+
+def cg_passes_agree(got, runs, slack=(0, 0)):
+    """Whether one solve's CG passes `got` = [first, restart] lie within
+    the span of the JAX runs' (`runs`: one [first, restart] per run),
+    widened by `slack` = (first, restart); each pass takes at least one
+    iteration."""
+    if len(got) != 2:
+        return False
+    for k, (n, s) in enumerate(zip(got, slack)):
+        lo, hi = min(int(r[k]) for r in runs), max(int(r[k]) for r in runs)
+        if not max(1, lo - s) <= int(n) <= hi + s:
+            return False
+    return True
+
+
 def l2_regularization_grad(mesh, thickness):
     """d/dh of the compliance's L2 thickness regularization 0.5e-2 int h^2
     for an element-wise thickness: 1e-2 h_c |cell c| per cell, exact on
-    flat quads. On a laminate h reaches the state only through drilling, so
-    this term is nearly all of dJ/dh and the rest is the adjoint's part.
-    numpy (n_cells,)."""
-    x = np.asarray(mesh.coords)[np.asarray(mesh.conn)]  # (nc, 4, 3)
-    area = 0.5 * np.linalg.norm(np.cross(x[:, 2] - x[:, 0],
-                                         x[:, 3] - x[:, 1]), axis=1)
+    flat quads and triangles. On a laminate h reaches the state only
+    through drilling, so this term is nearly all of dJ/dh and the rest is
+    the adjoint's part. numpy (n_cells,)."""
+    x = np.asarray(mesh.coords)[np.asarray(mesh.conn)]  # (nc, 3 or 4, 3)
+    if x.shape[1] == 3:
+        d0, d1 = x[:, 1] - x[:, 0], x[:, 2] - x[:, 0]
+    else:  # a flat quad's area is half its diagonals' cross product
+        d0, d1 = x[:, 2] - x[:, 0], x[:, 3] - x[:, 1]
+    area = 0.5 * np.linalg.norm(np.cross(d0, d1), axis=1)
     return 1e-2 * np.asarray(thickness, dtype=np.float64) * area
 
 

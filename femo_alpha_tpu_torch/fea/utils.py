@@ -161,9 +161,10 @@ class Delta:
 
 
 def computeNodalDisp(space, u):
-    """CG2 -> nodal (CG1) displacement values (n_nodes, vs) (parity with
-    computeNodalDisp, linear_shell_fenicsx/utils.py:105-114): vertex dofs
-    come first in the dof layout, so this is a slice."""
+    """Lagrange (P1 or P2) -> nodal (CG1) displacement values (n_nodes,
+    vs) (parity with computeNodalDisp, linear_shell_fenicsx/utils.py:
+    105-114): vertex dofs come first in the dof layout, so this is a
+    slice."""
     nn = space.mesh.n_nodes
     vs = space.value_size
     return u[: nn * vs].reshape(nn, vs)

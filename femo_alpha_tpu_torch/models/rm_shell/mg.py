@@ -81,7 +81,8 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
         pde_k = RMShellPDE(
             mesh_k, element_wise_material=pde.element_wise_material,
             elementwise_pressure=pde.elementwise_pressure,
-            inplane_deg=pde.inplane_deg, shear_deg=pde.shear_deg,
+            element_type=pde.element_type, inplane_deg=pde.inplane_deg,
+            shear_deg=pde.shear_deg,
             bot_plane=pde.bot_plane, composite=composite_k, device=device)
         free_k, _ = combine_bcs(
             pde_k.W.n_dofs, [DirichletBC(strong_bc_dofs(pde_k, bc_func))],

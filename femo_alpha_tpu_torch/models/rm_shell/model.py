@@ -68,9 +68,10 @@ geometry.
 `additional_outputs` is accepted and ignored, as the reference ignores
 it.
 
-Not ported yet (ROADMAP.md, Queue 1), raising NotImplementedError before
-the device is looked at: other element types and dtypes. The model runs
-on the CUDA card unless
+`element_type` is "CG2CG1" (the default), "CG2CR1" (triangles) or
+"CG1CG1", each on every solve route above (RMShellPDE). Not ported yet
+(ROADMAP.md, Queue 1), raising NotImplementedError before the device is
+looked at: dtypes other than f64. The model runs on the CUDA card unless
 `device` names another; without a card and without `device` it raises
 (pass device="cpu" for the CPU).
 """
@@ -118,7 +119,7 @@ class AggregatedStressModel:
 
 
 class DisplacementExtractionModel:
-    """CG2 mixed solution -> (n_nodes, 3) nodal displacements in the
+    """Mixed solution -> (n_nodes, 3) nodal displacements in the
     caller's node order."""
 
     def __init__(self, shell_pde: RMShellPDE):
@@ -163,8 +164,6 @@ class RMShellModel:
                 "Example: def ClampedBoundary(x): return x[:, 1] < 0.0")
         if dtype != torch.float64:
             raise _not_ported(f"dtype={dtype} (the solve runs in f64)")
-        if element_type != "CG2CG1":
-            raise _not_ported(f"element_type={element_type!r}")
         self.mesh = mesh
         self.mesh_tags = mesh_tags
         self.record = record

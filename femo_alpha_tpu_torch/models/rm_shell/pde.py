@@ -1,7 +1,10 @@
 """Reissner-Mindlin shell PDE: energy kernels and output forms.
 
-Port of femo_alpha_tpu/models/rm_shell/pde.py (mixed CG2(vec3) x CG1(vec3)
-space, MID reference plane, isotropic material):
+Port of femo_alpha_tpu/models/rm_shell/pde.py: a mixed displacement x
+rotation space (vec3 x vec3) of one of three element pairs, `element_type`
+"CG2CG1" (the default; P2 x P1), "CG2CR1" (P2 x Crouzeix-Raviart, triangles
+only; the rotations live on the edge midpoints) or "CG1CG1" (P1 x P1; full
+integration locks in shear, `shear_deg=1` with `inplane_deg=2` does not):
 
 - energy = membrane + bending + shear + drilling - load work; the residual
   is torch.func.grad of the cell energy
@@ -57,12 +60,6 @@ from .material import plane_stress_C, single_layer_clt
 PENALTY_BETA = 1e15  # the reference's penalty factor
 
 
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported to femo_alpha_tpu_torch yet (ROADMAP.md, "
-        "Queue 1)")
-
-
 def _interp(space, phi, vals):
     """Pointwise interpolation of a scalar parameter: DG0 -> the cell
     constant; CG1 -> nodal interpolation with the CG1 table."""
@@ -78,15 +75,25 @@ def _interp_vec(space, phi, vals, vs=3):
 
 
 class RMShellPDE:
-    """Spaces + kernels for the RM shell (CG2CG1 elements). device: where
-    the element tables live; None means the CUDA card."""
+    """Spaces + kernels for the RM shell (CG2CG1, CG2CR1 or CG1CG1
+    elements). device: where the element tables live; None means the CUDA
+    card."""
 
     def __init__(self, mesh, element_wise_material=False,
                  elementwise_pressure=False, element_type="CG2CG1",
                  inplane_deg=4, shear_deg=4, stress_deg=4, bot_plane=False,
                  composite=None, device=None):
-        if element_type != "CG2CG1":
-            raise _not_ported(f"element_type={element_type!r}")
+        ct = mesh.cell_type
+        if element_type == "CG2CG1":
+            disp_deg, rot_fam, rot_deg = 2, "P", 1
+        elif element_type == "CG2CR1":
+            if ct != "triangle":
+                raise ValueError("CG2CR1 is triangles-only")
+            disp_deg, rot_fam, rot_deg = 2, "CR", 1
+        elif element_type == "CG1CG1":
+            disp_deg, rot_fam, rot_deg = 1, "P", 1
+        else:
+            raise ValueError(f"element_type={element_type!r}")
         if composite is not None and composite.A.shape[0] != mesh.n_cells:
             raise ValueError(f"composite laminate has {composite.A.shape[0]} "
                              f"cells, the mesh {mesh.n_cells}")
@@ -96,8 +103,11 @@ class RMShellPDE:
         self.composite = composite
         self.element_wise_material = element_wise_material
         self.elementwise_pressure = elementwise_pressure
-        self.V_disp = FunctionSpace(mesh, "P", 2, value_size=3)
-        self.V_rot = FunctionSpace(mesh, "P", 1, value_size=3)
+        self.V_disp = FunctionSpace(mesh, "P", disp_deg, value_size=3)
+        self.V_rot = FunctionSpace(mesh, rot_fam, rot_deg, value_size=3)
+        self.element_type = element_type
+        self.rot_fam, self.rot_deg = rot_fam, rot_deg
+        self.disp_deg = disp_deg
         self.inplane_deg, self.shear_deg = inplane_deg, shear_deg
         self.stress_deg = stress_deg
         self.W = MixedSpace(self.V_disp, self.V_rot)
@@ -114,13 +124,12 @@ class RMShellPDE:
         # tables per rule (disp/rot/thickness/force bases tabulated at
         # shared points), made once here: the kernels run inside
         # torch.func transforms, which must not create cached tensors
-        ct = mesh.cell_type
         self._rules = {}
         for name, deg in [("inplane", inplane_deg), ("shear", shear_deg),
                           ("stress", stress_deg)]:
             pts, w = quadrature_rule(ct, deg)
-            tab_d = tabulate("P", ct, 2, points=pts, weights=w)
-            tab_r = tabulate("P", ct, 1, points=pts, weights=w)
+            tab_d = tabulate("P", ct, disp_deg, points=pts, weights=w)
+            tab_r = tabulate(rot_fam, ct, rot_deg, points=pts, weights=w)
             tab_t = tabulate(self.VT.family, ct, self.VT.degree, points=pts,
                              weights=w)
             tab_f = tabulate(self.VF.family, ct, self.VF.degree, points=pts,
@@ -412,14 +421,15 @@ class RMShellPDE:
             icells, ilocals = self.mesh.interior_facets(bc_locs_func)
             cells = np.concatenate([np.asarray(cells), icells])
             locals_ = np.concatenate([np.asarray(locals_), ilocals])
-        families = [("P", 2), ("P", 1)]
+        fam_d, fam_r = ("P", self.disp_deg), (self.rot_fam, self.rot_deg)
+        families = [fam_d, fam_r]
         nd2, nd1, nv = self.nd_disp, self.nd_rot, self.nv
         dev = self.device
 
         def factory(tabs):
             t64 = dict(dtype=torch.float64, device=dev)
-            phi_d = torch.as_tensor(tabs.tabs[("P", 2)][0], **t64)
-            phi_r = torch.as_tensor(tabs.tabs[("P", 1)][0], **t64)
+            phi_d = torch.as_tensor(tabs.tabs[fam_d][0], **t64)
+            phi_r = torch.as_tensor(tabs.tabs[fam_r][0], **t64)
             geom_dphi = torch.as_tensor(tabs.geom_dphi, **t64)
             dxi_dt = torch.as_tensor(tabs.dxi_dt, **t64)
             w1d = torch.as_tensor(tabs.weights, **t64)
@@ -578,8 +588,8 @@ class RMShellPDE:
 
     # -------------------------------------------------------- interop maps
     def extract_nodal_disp(self, w):
-        """CG2 -> CG1 nodal displacements (n_nodes, 3): the value of a
-        Lagrange CG2 field at a mesh vertex is its vertex dof, and vertex
-        dofs come first in the dofmap."""
+        """Nodal displacements (n_nodes, 3): the value of a Lagrange (P1 or
+        P2) field at a mesh vertex is its vertex dof, and vertex dofs come
+        first in the dofmap."""
         nn = self.mesh.n_nodes
         return w[: 3 * nn].reshape(nn, 3)

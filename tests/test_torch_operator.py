@@ -213,8 +213,10 @@ def test_entry_points_without_a_card_raise(what, monkeypatch):
                                         ("no_hierarchy", 30, 16)])
 def test_unported_configurations_raise_before_the_device(what, nx, ny,
                                                          monkeypatch):
-    """On the band paths (penalty BCs, a structured mesh with no multigrid
-    hierarchy) an unported option raises before the device is looked at.
+    """On the band path of a structured mesh with no multigrid hierarchy
+    an unported option (dtype=float32) raises before the device is looked
+    at; the CG2CR1 element, once unported, builds on the penalty triangle
+    plate (22,227 dofs) and takes the band Cholesky, as the reference.
     On the dense plate, custom solver_opts are ported: used verbatim, as
     the reference uses them, the shell is solved by the reference's
     Jacobi-CG instead of the dense Cholesky, and the state and compliance
@@ -246,9 +248,18 @@ def test_unported_configurations_raise_before_the_device(what, nx, ny,
         assert model.fea.states["disp_solid"].pde.last_info["forward"][
             "iters"] > 0
         return
-    unported = {"penalty": dict(element_type="CG2CR1"),
-                "no_hierarchy": dict(dtype=torch.float32)}[what]
+    if what == "penalty":
+        # CG2CR1 is ported: on the penalty triangle plate it builds without
+        # a card (device="cpu") and takes the band Cholesky
+        mesh = createRectangleMesh(nx, ny, (0, 0), (10.0, 2.0), "triangle",
+                                   gdim=3)
+        model = RMShellModel(mesh, shell_bc_func=_clamped,
+                             element_wise_material=True,
+                             element_type="CG2CR1", device="cpu")
+        pde = model.fea.states["disp_solid"].pde
+        assert type(pde._pc).__name__ == "BandPrecond"
+        assert model.band is not None and pde.n_dofs > 6000
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         RMShellModel(_rect(nx, ny), shell_bc_func=_clamped,
-                     element_wise_material=True,
-                     PENALTY_BC=what == "penalty", **unported)
+                     element_wise_material=True, dtype=torch.float32)

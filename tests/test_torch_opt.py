@@ -1,32 +1,28 @@
-"""The optimization layer of the port on the CPU, against the live JAX
+"""The optimization layer of the port on the CPU, against the JAX
 package: OptimizationProblem / SLSQP (vector constraints, a wing thickness
 study), the csdl operation contracts (StateOperation, OutputOperation,
 OutputFieldOperation) on a small strong-BC plate, and the npz checkpoint.
 
-Inputs are made with numpy from a seed and handed to both packages; f64
-throughout; the reference runs with its FEMO_* solver flags unset
-(FEMO_MG_F32, FEMO_LANE_MAJOR, FEMO_HOSTLOOP, FEMO_CG_DF, FEMO_OP_STORAGE).
+Inputs are made with numpy from a seed, as the JAX package's side was
+made; f64 throughout. The JAX package's results are pinned by
+`tools/opt_reference_digits.py tests` (tests/reference_digits/opt.npz,
+scipy 1.17.0), which runs it with its FEMO_* solver flags unset
+(FEMO_MG_F32, FEMO_LANE_MAJOR, FEMO_HOSTLOOP, FEMO_CG_DF, FEMO_OP_STORAGE)
+and jitted as these tests once called it; the checkpoint test calls the
+reference's reader and writer (host numpy) live.
 Tolerances: 1e-10 for the SLSQP solutions of the analytic problems and
 for the contract products at one state, 1e-9 for the two packages' dense
 solves, 1e-8 for the wing study's first iterate and 1e-6 for its later
 ones (each test says why)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
-from femo_alpha_tpu.csdl_opt import OutputFieldOperation as RefFieldOp
-from femo_alpha_tpu.csdl_opt import OutputOperation as RefOutputOp
-from femo_alpha_tpu.csdl_opt import StateOperation as RefStateOp
 from femo_alpha_tpu.io import load_checkpoint as ref_load
 from femo_alpha_tpu.io import save_checkpoint as ref_save
-from femo_alpha_tpu.mesh import createRectangleMesh as ref_rect
-from femo_alpha_tpu.mesh import createWingShellMesh as ref_wing
-from femo_alpha_tpu.models import RMShellModel as RefModel
-from femo_alpha_tpu.opt import OptimizationProblem as RefProblem
 
 from femo_alpha_tpu_torch.csdl_opt import (
     OutputFieldOperation,
@@ -38,8 +34,8 @@ from femo_alpha_tpu_torch.mesh import createRectangleMesh, createWingShellMesh
 from femo_alpha_tpu_torch.models import RMShellModel
 from femo_alpha_tpu_torch.opt import SLSQP, OptimizationProblem
 
-REF_FLAGS = ("FEMO_MG_F32", "FEMO_LANE_MAJOR", "FEMO_HOSTLOOP", "FEMO_CG_DF",
-             "FEMO_OP_STORAGE")
+REF_NPZ = os.path.join(os.path.dirname(__file__), "reference_digits",
+                       "opt.npz")
 
 
 class Out:
@@ -64,21 +60,17 @@ def one_thread():
 
 
 @pytest.fixture(scope="module")
-def ref_env():
-    with pytest.MonkeyPatch.context() as mp:
-        for flag in REF_FLAGS:
-            mp.delenv(flag, raising=False)
-        yield
+def digits():
+    with np.load(REF_NPZ) as z:
+        return {k: z[k] for k in z.files}
 
 
-def _vector_problem(case, xp):
-    """tests/test_opt_vector.py's two problems, in numpy-like `xp`."""
-    stack = torch.stack if xp is torch else jnp.stack
-
+def _vector_problem(case):
+    """tests/test_opt_vector.py's two problems."""
     if case == "lower":
         def ev(dv):
             out = Out()
-            out.obj = xp.sum(dv["x"] ** 2)
+            out.obj = torch.sum(dv["x"] ** 2)
             out.con = dv["x"]
             return out
 
@@ -91,8 +83,8 @@ def _vector_problem(case, xp):
     def ev(dv):
         x = dv["x"]
         out = Out()
-        out.obj = xp.sum((x - 2.0) ** 2)
-        out.eqs = stack([x[0] + x[1], x[2]])
+        out.obj = torch.sum((x - 2.0) ** 2)
+        out.eqs = torch.stack([x[0] + x[1], x[2]])
         out.x3 = x[3]
         return out
 
@@ -105,22 +97,18 @@ def _vector_problem(case, xp):
 
 
 @pytest.mark.parametrize("case", ["lower", "equality_and_upper"])
-def test_vector_constraints_match_reference(case):
+def test_vector_constraints_match_reference(case, digits):
     """A vector lower bound; a vector equality beside a scalar upper bound:
     the same x* to 1e-10 and the same nit / nfev / njev as the reference."""
-    ev, build, maxiter = _vector_problem(case, torch)
+    ev, build, maxiter = _vector_problem(case)
     prob = OptimizationProblem(ev, device="cpu")
     build(prob)
     dvs, res = prob.solve(maxiter=maxiter, report=False)
-    ev_r, _, _ = _vector_problem(case, jnp)
-    ref = RefProblem(ev_r)
-    build(ref)
-    dvs_r, res_r = ref.solve(maxiter=maxiter, report=False)
-    assert res.success and res_r.success
+    assert res.success
     assert dvs["x"].dtype == torch.float64
-    assert _rel(dvs["x"], dvs_r["x"]) <= 1e-10
-    assert (res.nit, res.nfev, res.njev) == (res_r.nit, res_r.nfev,
-                                             res_r.njev)
+    assert _rel(dvs["x"], digits[f"vector_{case}_x"]) <= 1e-10
+    assert [res.nit, res.nfev, res.njev] == \
+        digits[f"vector_{case}_counts"].tolist()
     assert len(prob.history) == res.nit
     # SLSQP, the reference's name for the loop, runs the same loop
     again = OptimizationProblem(ev, device="cpu")
@@ -140,17 +128,16 @@ def test_problem_defaults_to_the_card(monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def plate(ref_env):
-    """An 8x4 strong-BC plate (dense solve path) in both packages, its
-    inputs in FE order, and the reference's solved state."""
+def plate():
+    """An 8x4 strong-BC plate (dense solve path), its inputs in FE order
+    and the seeded generator the tests go on drawing from (in the order
+    tools/opt_reference_digits.py draws)."""
     def bc(x):
         return x[:, 0] < 1e-12
 
     mesh = createRectangleMesh(8, 4, (0, 0), (2.0, 1.0), "quad", gdim=3)
-    rmesh = ref_rect(8, 4, (0, 0), (2.0, 1.0), "quad", gdim=3)
-    kw = dict(shell_bc_func=bc, element_wise_material=True, PENALTY_BC=False)
-    port = RMShellModel(mesh, device="cpu", **kw)
-    ref = RefModel(rmesh, **kw)
+    port = RMShellModel(mesh, device="cpu", shell_bc_func=bc,
+                        element_wise_material=True, PENALTY_BC=False)
     rng = np.random.default_rng(0)
     nel, nn = mesh.n_cells, mesh.n_nodes
     f = np.zeros(3 * nn)
@@ -158,10 +145,10 @@ def plate(ref_env):
     inputs = {"thickness": 0.02 + 0.01 * rng.random(nel), "F_solid": f,
               "E": 7e10 * (1 + 0.1 * rng.random(nel)),
               "nu": np.full(nel, 0.3), "uhat": np.zeros(3 * nn)}
-    return dict(port=port, ref=ref, inputs=inputs, rng=rng)
+    return dict(port=port, inputs=inputs, rng=rng)
 
 
-def test_state_operation_matches_reference(plate):
+def test_state_operation_matches_reference(plate, digits):
     """The four-method contract against the reference's operations. The
     products dR/dp^T lam ('rev') and dR/dp . dp ('fwd') at one and the
     same state, to 1e-10 (measured: <= 1.3e-12); the solves (the forward
@@ -170,81 +157,66 @@ def test_state_operation_matches_reference(plate):
     9.6e-11 for u, 6.7e-11 for lam), which the products then carry."""
     inputs, rng = plate["inputs"], plate["rng"]
     op = StateOperation(plate["port"].fea, "disp_solid")
-    rop = RefStateOp(plate["ref"].fea, "disp_solid")
     u = op.evaluate(inputs)
-    u_r = rop.solve_residual_equations(
-        {k: jnp.asarray(v) for k, v in inputs.items()})
-    assert _rel(u, u_r) <= 1e-9
+    assert _rel(u, digits["state_u"]) <= 1e-9
     g_u = rng.standard_normal(u.shape[0])
     lam = op.apply_inverse_jacobian(g_u, "rev")
-    lam_r = rop.apply_inverse_jacobian(jnp.asarray(g_u), "rev")
-    assert _rel(lam, lam_r) <= 1e-9
+    assert _rel(lam, digits["state_lam"]) <= 1e-9
     tangents = {k: rng.standard_normal(np.shape(v))
                 for k, v in inputs.items()}
     tangents["uhat"] = np.zeros_like(inputs["uhat"])
     dr = op.compute_jacvec_product(inputs, "fwd", tangents)
-    dr_r = jax.jit(lambda t: rop.compute_jacvec_product(
-        inputs, "fwd", t))(tangents)
     du = op.apply_inverse_jacobian(dr, "fwd")
-    assert _rel(du, rop.apply_inverse_jacobian(dr_r, "fwd")) <= 1e-9
+    assert _rel(du, digits["state_du"]) <= 1e-9
     # the adjoint identity g_u . du = lam . dR within the port
-    d_in = op.compute_jacvec_product(inputs, "rev", lam)
     assert abs(float(torch.dot(torch.as_tensor(g_u), du))
                / float(torch.dot(lam, dr)) - 1.0) <= 1e-10
-    # the products at the reference's state (the reference's, jitted)
-    op._last = (torch.as_tensor(np.array(u_r)), op._last[1], None)
-    lam_r = torch.as_tensor(np.array(lam_r))
+    # the products at the reference's state
+    op._last = (torch.as_tensor(digits["state_u"]), op._last[1], None)
+    lam_r = torch.as_tensor(digits["state_lam"])
     d_in = op.compute_jacvec_product(inputs, "rev", lam_r)
-    d_in_r = jax.jit(lambda lr: rop.compute_jacvec_product(
-        inputs, "rev", lr))(jnp.asarray(lam_r))
     for k in d_in:
-        assert _rel(d_in[k], d_in_r[k]) <= 1e-10, k
+        assert _rel(d_in[k], digits[f"state_d_in_{k}"]) <= 1e-10, k
     dr = op.compute_jacvec_product(inputs, "fwd", tangents)
-    assert _rel(dr, dr_r) <= 1e-10
+    assert _rel(dr, digits["state_dr"]) <= 1e-10
 
 
-def test_output_operations_match_reference(plate):
+def test_output_operations_match_reference(plate, digits):
     """OutputOperation (compliance) value and partials, and
     OutputFieldOperation (the DG1 von Mises field) value and vjp, at the
     reference's state, to 1e-10."""
     inputs, rng = plate["inputs"], plate["rng"]
-    u = RefStateOp(plate["ref"].fea, "disp_solid").solve_residual_equations(
-        {k: jnp.asarray(v) for k, v in inputs.items()})
-    vals = dict(inputs, disp_solid=np.asarray(u))
+    vals = dict(inputs, disp_solid=digits["state_u"])
     op = OutputOperation(plate["port"].fea, "compliance")
-    rop = RefOutputOp(plate["ref"].fea, "compliance")
-    assert abs(float(op.compute(vals)) / float(rop.compute(vals)) - 1.0) \
-        <= 1e-10
+    assert abs(float(op.compute(vals))
+               / float(digits["output_compliance"]) - 1.0) <= 1e-10
     g = op.compute_derivatives(vals)
-    g_r = jax.jit(rop.compute_derivatives)(vals)
     for k in ("disp_solid", "thickness"):
-        assert _rel(g[k], g_r[k]) <= 1e-10, k
+        assert _rel(g[k], digits[f"output_d_{k}"]) <= 1e-10, k
     fop = OutputFieldOperation(plate["port"].fea, "stress")
-    rfop = RefFieldOp(plate["ref"].fea, "stress")
     s = fop.compute(vals)
-    assert _rel(s, rfop.compute(vals)) <= 1e-10
+    assert _rel(s, digits["output_stress"]) <= 1e-10
     ct = rng.standard_normal(s.shape[0])
     wrt = ["disp_solid", "thickness", "E"]
     v = fop.compute_vjp(vals, ct, wrt)
-    v_r = jax.jit(lambda vs, c: rfop.compute_vjp(vs, c, wrt))(vals, ct)
     for k in wrt:
-        assert _rel(v[k], v_r[k]) <= 1e-10, k
+        assert _rel(v[k], digits[f"output_vjp_{k}"]) <= 1e-10, k
 
 
-def test_wing_thickness_opt_history_matches_reference(ref_env):
+def test_wing_thickness_opt_history_matches_reference(digits):
     """tests/test_wing_opt.py's study (6x12 generated wing, penalty root
-    clamp, min mass s.t. aggregated stress) at maxiter=3, the reference
-    jitted as that test runs it: the same nit / nfev / njev, one model
-    evaluation per design point, the objective at the first iterate to
-    1e-8 and at every iterate to 1e-6. The trajectory parts below 1e-8
+    clamp, min mass s.t. aggregated stress) at maxiter=3, against the
+    reference jitted as that test runs it: the same nit / nfev / njev, one
+    model evaluation per design point, the objective at the first iterate
+    to 1e-8 and at every iterate to 1e-6. The trajectory parts below 1e-8
     after the first iterate, and not by a fault: the packages' constraint
     gradients agree to 4.3e-10 (two dense f64 solves of the beta = 1e15
     penalty system), and the port against itself with its constraint
     gradient perturbed by a relative 4e-10 moves the second iterate's
     objective by 4-5e-8 (SLSQP's QP subproblem amplifies it). Measured:
     1.6e-11, 1.6e-10, 4.2e-8 at the three iterates."""
-    kw = dict(n_chord=6, n_span=12, rib_stations=(6,), shuffle_seed=3)
-    mesh, rmesh = createWingShellMesh(**kw), ref_wing(**kw)
+    mesh = createWingShellMesh(n_chord=6, n_span=12, rib_stations=(6,),
+                               shuffle_seed=3)
     nel, nn = mesh.n_cells, mesh.n_nodes
     span = float(np.max(mesh.coords[:, 1]))
     eta = np.clip(np.asarray(mesh.coords[:, 1]) / span, 0.0, 1.0)
@@ -253,54 +225,29 @@ def test_wing_thickness_opt_history_matches_reference(ref_env):
     base = dict(E=np.full(nel, 69e9), nu=np.full(nel, 0.33),
                 density=np.full(nel, 2700.0))
     h0 = 0.006
+    model = RMShellModel(mesh, shell_bc_func=lambda x: x[:, 1] < 1e-9,
+                         element_wise_material=True, record=False,
+                         device="cpu")
 
-    def run(model_cls, problem_cls, m, **pkw):
-        model = model_cls(m, shell_bc_func=lambda x: x[:, 1] < 1e-9,
-                          element_wise_material=True, record=False,
-                          **({"device": "cpu"} if model_cls is RMShellModel
-                             else {}))
+    def ev(dv):
+        return model.evaluate(pressure, thickness=dv["thickness"],
+                              is_pressure=True, **base)
 
-        def ev(dv):
-            return model.evaluate(pressure, thickness=dv["thickness"],
-                                  is_pressure=True, **base)
-
-        out0 = ev({"thickness": np.full(nel, h0)})
-        mass0 = float(out0.mass)
-        agg0 = float(out0.aggregated_stress)
-        seen, xs = {}, []
-
-        class Recording(problem_cls):
-            def _scalar_fn(self, name, scaler=1.0):
-                vg = super()._scalar_fn(name, scaler)
-
-                def rec(x):
-                    v, g = vg(x)
-                    seen[np.asarray(x).tobytes()] = float(v)
-                    return v, g
-
-                return rec
-
-        prob = (Recording if problem_cls is RefProblem else problem_cls)(
-            ev, **pkw)
-        prob.add_design_variable("thickness", h0 * np.ones(nel),
-                                 lower=0.002, upper=0.02)
-        prob.add_constraint("aggregated_stress", upper=1.10 * agg0,
-                            scaler=1.0 / agg0)
-        prob.set_objective("mass", scaler=1.0 / mass0)
-        _, res = prob.solve(maxiter=3, ftol=1e-8, report=False,
-                            callback=lambda x: xs.append(np.array(x)))
-        hist = (prob.history if problem_cls is OptimizationProblem
-                else [seen[x.tobytes()] for x in xs])
-        return hist, res, prob
-
-    hist_r, res_r, _ = run(RefModel, RefProblem, rmesh)
-    hist, res, prob = run(RMShellModel, OptimizationProblem, mesh,
-                          device="cpu")
+    out0 = ev({"thickness": np.full(nel, h0)})
+    mass0 = float(out0.mass)
+    agg0 = float(out0.aggregated_stress)
+    prob = OptimizationProblem(ev, device="cpu")
+    prob.add_design_variable("thickness", h0 * np.ones(nel), lower=0.002,
+                             upper=0.02)
+    prob.add_constraint("aggregated_stress", upper=1.10 * agg0,
+                        scaler=1.0 / agg0)
+    prob.set_objective("mass", scaler=1.0 / mass0)
+    _, res = prob.solve(maxiter=3, ftol=1e-8, report=False)
+    hist, hist_r = prob.history, digits["wing_history"]
     assert len(hist) == len(hist_r) == 3
     assert _rel(hist[:1], hist_r[:1]) <= 1e-8
     assert _rel(hist, hist_r) <= 1e-6
-    assert (res.nit, res.nfev, res.njev) == (res_r.nit, res_r.nfev,
-                                             res_r.njev)
+    assert [res.nit, res.nfev, res.njev] == digits["wing_counts"].tolist()
     assert prob.counts["evaluate"] == res.nfev
 
 

@@ -1,7 +1,22 @@
 """The JAX package's digits on the PAV wing thickness study, the constants
-OPT_DIGITS of chip_smoke.py's `opt` phase:
+OPT_DIGITS of chip_smoke.py's `opt` phase, and the reference side of
+tests/test_torch_opt.py (`tests`):
 
     FEMO_PLATFORM=cpu FEMO_COMPILE_CACHE=0 python tools/opt_reference_digits.py [MAXITER]
+    FEMO_PLATFORM=cpu FEMO_COMPILE_CACHE=0 python tools/opt_reference_digits.py tests
+
+`tests` (~1.5 min) writes tests/reference_digits/opt.npz: the JAX
+package's OptimizationProblem on tests/test_opt_vector.py's two vector
+problems (x*, nit / nfev / njev); its StateOperation, OutputOperation
+and OutputFieldOperation on the test's 8x4 strong-BC plate (2 x 1,
+element-wise, the dense path) at the test's seeded inputs
+(default_rng(0): thickness, E; then the test's draws in its order: g_u,
+the tangents, the cotangent of the stress field), jitted as the test
+calls them; and tests/test_wing_opt.py's study (6x12 generated wing,
+ribs at 6, shuffle 3, penalty root clamp, E 69e9, nu 0.33, rho 2,700,
+the elliptic 2,000 Pa lift, h0 = 0.006 in [0.002, 0.02], min mass s.t.
+aggregated stress <= 1.10 x its value at h0, maxiter 3, ftol 1e-8),
+jitted: the objective at each iterate and nit / nfev / njev.
 
 femo_alpha_tpu's OptimizationProblem (scipy SLSQP) on the problem of
 examples/advanced_examples/pav_shell_opt/ex_pav_wing_thickness_opt.py:
@@ -55,7 +70,162 @@ class RecordingProblem(OptimizationProblem):
         return rec
 
 
+def _vector_problem(case):
+    """tests/test_opt_vector.py's two problems, in jax.numpy."""
+    class Out:
+        pass
+
+    if case == "lower":
+        def ev(dv):
+            out = Out()
+            out.obj = jnp.sum(dv["x"] ** 2)
+            out.con = dv["x"]
+            return out
+
+        def build(prob):
+            prob.add_design_variable("x", np.array([5.0, 5.0, 5.0]))
+            prob.set_objective("obj")
+            prob.add_constraint("con", lower=np.array([1.0, 2.0, 3.0]))
+        return ev, build, 100
+
+    def ev(dv):
+        x = dv["x"]
+        out = Out()
+        out.obj = jnp.sum((x - 2.0) ** 2)
+        out.eqs = jnp.stack([x[0] + x[1], x[2]])
+        out.x3 = x[3]
+        return out
+
+    def build(prob):
+        prob.add_design_variable("x", np.zeros(4))
+        prob.set_objective("obj")
+        prob.add_constraint("eqs", equals=np.array([1.0, 0.5]))
+        prob.add_constraint("x3", upper=0.0)
+    return ev, build, 200
+
+
+def _plate_digits(out):
+    """The csdl contracts on the 8x4 plate, in the test's order of draws."""
+    import jax
+
+    from femo_alpha_tpu.csdl_opt import (
+        OutputFieldOperation,
+        OutputOperation,
+        StateOperation,
+    )
+    from femo_alpha_tpu.mesh import createRectangleMesh
+
+    mesh = createRectangleMesh(8, 4, (0, 0), (2.0, 1.0), "quad", gdim=3)
+    ref = RMShellModel(mesh, shell_bc_func=lambda x: x[:, 0] < 1e-12,
+                       element_wise_material=True, PENALTY_BC=False)
+    rng = np.random.default_rng(0)
+    nel, nn = mesh.n_cells, mesh.n_nodes
+    f = np.zeros(3 * nn)
+    f[2::3] = 5e3
+    inputs = {"thickness": 0.02 + 0.01 * rng.random(nel), "F_solid": f,
+              "E": 7e10 * (1 + 0.1 * rng.random(nel)),
+              "nu": np.full(nel, 0.3), "uhat": np.zeros(3 * nn)}
+    rop = StateOperation(ref.fea, "disp_solid")
+    u_r = rop.solve_residual_equations(
+        {k: jnp.asarray(v) for k, v in inputs.items()})
+    g_u = rng.standard_normal(u_r.shape[0])
+    lam_r = rop.apply_inverse_jacobian(jnp.asarray(g_u), "rev")
+    tangents = {k: rng.standard_normal(np.shape(v))
+                for k, v in inputs.items()}
+    tangents["uhat"] = np.zeros_like(inputs["uhat"])
+    dr_r = jax.jit(lambda t: rop.compute_jacvec_product(
+        inputs, "fwd", t))(tangents)
+    out["state_u"] = np.asarray(u_r)
+    out["state_lam"] = np.asarray(lam_r)
+    out["state_dr"] = np.asarray(dr_r)
+    out["state_du"] = np.asarray(rop.apply_inverse_jacobian(dr_r, "fwd"))
+    d_in_r = jax.jit(lambda lr: rop.compute_jacvec_product(
+        inputs, "rev", lr))(lam_r)
+    for k, v in d_in_r.items():
+        out[f"state_d_in_{k}"] = np.asarray(v)
+    # the output operations at the reference's state
+    u = StateOperation(ref.fea, "disp_solid").solve_residual_equations(
+        {k: jnp.asarray(v) for k, v in inputs.items()})
+    vals = dict(inputs, disp_solid=np.asarray(u))
+    cop = OutputOperation(ref.fea, "compliance")
+    out["output_compliance"] = np.asarray(float(cop.compute(vals)))
+    g = jax.jit(cop.compute_derivatives)(vals)
+    for k in ("disp_solid", "thickness"):
+        out[f"output_d_{k}"] = np.asarray(g[k])
+    fop = OutputFieldOperation(ref.fea, "stress")
+    s = np.asarray(fop.compute(vals))
+    out["output_stress"] = s
+    ct = rng.standard_normal(s.shape[0])
+    wrt = ["disp_solid", "thickness", "E"]
+    v = jax.jit(lambda vs, c: fop.compute_vjp(vs, c, wrt))(vals, ct)
+    for k in wrt:
+        out[f"output_vjp_{k}"] = np.asarray(v[k])
+
+
+def _wing_digits(out):
+    """tests/test_wing_opt.py's study at maxiter 3, jitted."""
+    from femo_alpha_tpu.mesh import createWingShellMesh
+
+    mesh = createWingShellMesh(n_chord=6, n_span=12, rib_stations=(6,),
+                               shuffle_seed=3)
+    nel, nn = mesh.n_cells, mesh.n_nodes
+    span = float(np.max(mesh.coords[:, 1]))
+    eta = np.clip(np.asarray(mesh.coords[:, 1]) / span, 0.0, 1.0)
+    pressure = np.zeros((nn, 3))
+    pressure[:, 2] = 2000.0 * np.sqrt(1.0 - eta ** 2)
+    base = dict(E=np.full(nel, 69e9), nu=np.full(nel, 0.33),
+                density=np.full(nel, 2700.0))
+    h0 = 0.006
+    model = RMShellModel(mesh, shell_bc_func=lambda x: x[:, 1] < 1e-9,
+                         element_wise_material=True, record=False)
+
+    def ev(dv):
+        return model.evaluate(pressure, thickness=dv["thickness"],
+                              is_pressure=True, **base)
+
+    out0 = ev({"thickness": np.full(nel, h0)})
+    mass0, agg0 = float(out0.mass), float(out0.aggregated_stress)
+    prob = RecordingProblem(ev)
+    prob.add_design_variable("thickness", h0 * np.ones(nel), lower=0.002,
+                             upper=0.02)
+    prob.add_constraint("aggregated_stress", upper=1.10 * agg0,
+                        scaler=1.0 / agg0)
+    prob.set_objective("mass", scaler=1.0 / mass0)
+    xs = []
+    _, res = prob.solve(maxiter=3, ftol=1e-8, report=False,
+                        callback=lambda x: xs.append(np.array(x)))
+    out["wing_history"] = np.asarray(
+        [prob.seen[np.asarray(x, dtype=np.float64).tobytes()] for x in xs])
+    out["wing_counts"] = np.asarray([res.nit, res.nfev, res.njev])
+
+
+def tests():
+    t_start = time.perf_counter()
+    out = {}
+    for case in ("lower", "equality_and_upper"):
+        ev, build, maxiter = _vector_problem(case)
+        prob = OptimizationProblem(ev)
+        build(prob)
+        dvs, res = prob.solve(maxiter=maxiter, report=False)
+        out[f"vector_{case}_x"] = np.asarray(dvs["x"])
+        out[f"vector_{case}_counts"] = np.asarray([res.nit, res.nfev,
+                                                   res.njev])
+    _plate_digits(out)
+    _wing_digits(out)
+    path = os.path.join(os.path.dirname(HERE), "tests", "reference_digits",
+                        "opt.npz")
+    np.savez_compressed(path, **out)
+    print(f"scipy {scipy.__version__}")
+    for k, v in out.items():
+        print(k, v.tolist() if v.size <= 6 else f"{v.shape}")
+    print(f"wrote {os.path.relpath(path, os.path.dirname(HERE))}")
+    print(f"seconds {time.perf_counter() - t_start:.1f}")
+
+
 def main():
+    if sys.argv[1:] == ["tests"]:
+        tests()
+        return
     t_start = time.perf_counter()
     mesh = readFEAMesh(os.path.join(os.path.dirname(HERE), "tests", "data",
                                     "pav_like_wing_2388.msh"))

@@ -4,7 +4,7 @@ tests/reference_digits/transient_10x2.npz, the reference side of
 tests/test_torch_transient.py:
 
     FEMO_PLATFORM=cpu FEMO_COMPILE_CACHE=0 \
-        python tools/transient_reference_digits.py [dense|mg|tests]
+        python tools/transient_reference_digits.py [dense|mg [STEPS]|tests]
 
 The FEMO_* solver flags of the JAX package (FEMO_MG_F32, FEMO_LANE_MAJOR,
 FEMO_HOSTLOOP, FEMO_CG_DF, FEMO_OP_STORAGE) are unset by the script.
@@ -12,7 +12,8 @@ FEMO_HOSTLOOP, FEMO_CG_DF, FEMO_OP_STORAGE) are unset by the script.
 femo_alpha_tpu's PlateSim (f64) at exactly the phase's inputs, which are
 those of tools/transient_bench.py: the 40x20 quad plate 10 x 2
 (createRectangleMesh, 12,546 dofs), clamped at x = 0, E = 4.32e8,
-nu = 0, rho = 100, dt = 0.01, 50 implicit-midpoint steps, element-wise
+nu = 0, rho = 100, dt = 0.01, STEPS implicit-midpoint steps (50 by
+default, the bench's workload; chip_smoke.py's phase runs 30), element-wise
 thickness 0.1, quad_deg 3, and a 1-cos gust of f_z = 10 per node over the
 first half of the horizon. It prints the total strain energy and
 |d total_strain_energy / d h| (2-norm over the cells) of the history path
@@ -171,10 +172,12 @@ def main():
         return tests()
     if method not in ("dense", "mg"):
         raise SystemExit(f"step solver {method!r}: dense, mg or tests")
+    nsteps = int(sys.argv[2]) if len(sys.argv) > 2 else 50
     mesh = createRectangleMesh(40, 20, (0, 0), (10.0, 2.0), "quad", gdim=3)
-    sim = PlateSim(mesh, E=4.32e8, nu=0.0, rho=100.0, dt=0.01, Nsteps=50,
-                   element_wise_thickness=True, solver_method=method)
-    fh = jnp.asarray(gust_history(mesh.n_nodes, 50, sim.dt))
+    sim = PlateSim(mesh, E=4.32e8, nu=0.0, rho=100.0, dt=0.01,
+                   Nsteps=nsteps, element_wise_thickness=True,
+                   solver_method=method)
+    fh = jnp.asarray(gust_history(mesh.n_nodes, nsteps, sim.dt))
 
     def total_energy(th):
         return jnp.sum(sim.strain_energy_history(sim.simulate(th, fh), th))
