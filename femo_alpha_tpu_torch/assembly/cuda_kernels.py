@@ -238,7 +238,9 @@ def gather_sum(yc, inv):
     """Dof pass: out[d] = the sum of yc.flatten()[inv[d, k]] over k in table
     order, starting from zero; padding (-1) adds nothing. With the tables
     of spaces/space.py::lane_tables it equals the space's scatter_add_T."""
-    g = torch.cat([yc.reshape(-1), yc.new_zeros(1)])[inv]
+    flat = torch.cat([yc.reshape(-1), yc.new_zeros(1)])
+    idx = torch.where(inv >= 0, inv, flat.shape[0] - 1)
+    g = flat.index_select(0, idx.reshape(-1)).view(inv.shape)
     out = torch.zeros_like(g[:, 0])
     for k in range(g.shape[1]):
         out = out + g[:, k]
@@ -249,7 +251,8 @@ def constrained_matvec_T_plain(Ae_T, x, free, dofmap_T, inv):
     """Plain twin of the fused operator, pass by pass: the cell pass
     yc = (Ae_T * (free * x)[dofmap_T][None]).sum(1), the dof pass over
     inv, then the mask and the identity on constrained dofs."""
-    yc = (Ae_T * (free * x)[dofmap_T][None]).sum(1)
+    v = (free * x).index_select(0, dofmap_T.reshape(-1))
+    yc = (Ae_T * v.view(dofmap_T.shape)[None]).sum(1)
     return free * gather_sum(yc, inv) + (1.0 - free) * x
 
 

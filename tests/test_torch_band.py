@@ -1,13 +1,17 @@
 """The port's band Cholesky (femo_alpha_tpu_torch/solvers/band.py) on the
-CPU, against the live JAX package: the RCM ordering and bandwidth, the
-blocked factor and solve against dense Cholesky, the preconditioner on a
-penalty wing, and RMShellModel above the dense cutoff, where both packages
-solve through band-preconditioned CG.
+CPU, against the JAX package: the RCM ordering and bandwidth, the blocked
+factor and solve against dense Cholesky, the preconditioner on a penalty
+wing, and RMShellModel above the dense cutoff, where both packages solve
+through band-preconditioned CG.
 
-Inputs are made with numpy from a seed; f64 throughout. The reference runs
-with its FEMO_* solver flags unset (FEMO_MG_F32, FEMO_LANE_MAJOR,
-FEMO_HOSTLOOP, FEMO_CG_DF, FEMO_OP_STORAGE, FEMO_BAND_MEM_GB); run with
-FEMO_COMPILE_CACHE=0 if its values look wrong (ROADMAP.md Queue 3)."""
+Inputs are made with numpy from a seed; f64 throughout. The RCM order,
+the dof permutation and the band are compared with the JAX package's
+live (host numpy); its band apply and its model at the same inputs are
+pinned in tests/reference_digits/wing.npz by
+`tools/wing_reference_digits.py tests` (the JAX package with its FEMO_*
+solver flags unset: FEMO_MG_F32, FEMO_LANE_MAJOR, FEMO_HOSTLOOP,
+FEMO_CG_DF, FEMO_OP_STORAGE, FEMO_BAND_MEM_GB; with
+FEMO_COMPILE_CACHE=0)."""
 
 import os
 
@@ -15,13 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
-from femo_alpha_tpu.assembly.assemble import element_matrices as ref_em
 from femo_alpha_tpu.mesh import createWingShellMesh as ref_wing
 from femo_alpha_tpu.mesh import readFEAMesh as ref_read
-from femo_alpha_tpu.models import RMShellModel as RefModel
 from femo_alpha_tpu.models.rm_shell.pde import RMShellPDE as RefPDE
 from femo_alpha_tpu.native import rcm_order as ref_rcm
 from femo_alpha_tpu.solvers import band as RB
@@ -34,8 +33,14 @@ from femo_alpha_tpu_torch.native import rcm_order
 from femo_alpha_tpu_torch.solvers import band as B
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
-REF_FLAGS = ("FEMO_MG_F32", "FEMO_LANE_MAJOR", "FEMO_HOSTLOOP", "FEMO_CG_DF",
-             "FEMO_OP_STORAGE", "FEMO_BAND_MEM_GB")
+REF_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "reference_digits", "wing.npz")
+
+
+@pytest.fixture(scope="module")
+def ref():
+    with np.load(REF_NPZ) as z:
+        return {k: z[k] for k in z.files}
 
 
 def _root(x):
@@ -117,7 +122,7 @@ def test_band_factor_raises_when_not_positive_definite():
         B.band_cholesky(_band_of(A, 8, 1), 8, 1)
 
 
-def test_band_precond_on_penalty_wing_matches_reference():
+def test_band_precond_on_penalty_wing_matches_reference(ref):
     """On the 6x10 penalty wing (cell block + facet block): two assemblies
     bit for bit, the apply a direct solve (rel res 1e-9, as
     tests/test_band.py holds the reference), and the port's
@@ -127,9 +132,7 @@ def test_band_precond_on_penalty_wing_matches_reference():
     reference's fed the port's) differ by 7.7e-10 on this random rhs, as
     numpy's dense solve differs from the port's by 1.1e-9."""
     mesh = createWingShellMesh(6, 10, rib_stations=(5,))
-    ref_mesh = ref_wing(6, 10, rib_stations=(5,))
     pde = RMShellPDE(mesh, element_wise_material=True, device="cpu")
-    ref = RefPDE(ref_mesh, element_wise_material=True)
     nel, nn, n = mesh.n_cells, mesh.n_nodes, pde.W.n_dofs
     rng = np.random.default_rng(3)
     p = {"thickness": 0.01 * (1 + 0.2 * rng.uniform(size=nel)),
@@ -146,22 +149,7 @@ def test_band_precond_on_penalty_wing_matches_reference():
     R1, R2 = band.assemble(ops), band.assemble(ops)
     assert torch.equal(R1, R2)
     x = band.apply(band.factor(R1), torch.as_tensor(b)).numpy()
-
-    rf = ref.make_penalty_facet_form(_root)
-    form = ref.make_residual_form()
-    pj = {k: jnp.asarray(v) for k, v in p.items()}
-    f_ops = jax.jit(rf.element_ops)(jnp.zeros(n), pj)
-    specs = [ref.W] + [d for _, d in f_ops]
-    dms = [np.asarray(ref.W.dofmap)] + [np.asarray(d) for _, d in f_ops]
-    rband = RB.BandCholPrecond(ref.W, dms, dtype=jnp.float64)
-
-    @jax.jit
-    def ref_apply(p_, b_):
-        Ae = ref_em(form, jnp.zeros(n), p_)
-        mats = [Ae] + [a for a, _ in f_ops]
-        return rband.apply(rband.setup(list(zip(mats, specs))), b_)
-
-    x_ref = np.asarray(ref_apply(pj, jnp.asarray(b)))
+    x_ref = ref["band_apply"]
     assert np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref) <= 1e-8
 
     from femo_alpha_tpu_torch.solvers.linear import dense_from_blocks
@@ -183,26 +171,10 @@ def _model_inputs(nel, nn):
 
 
 @pytest.fixture(scope="module")
-def band_reference():
+def band_reference(ref):
     """The JAX package on the 8x36 wing (8,823 dofs, band-preconditioned
-    CG): disp_solid and d compliance / d thickness, computed once."""
-    with pytest.MonkeyPatch.context() as mp:
-        for flag in REF_FLAGS:
-            mp.delenv(flag, raising=False)
-        mesh = ref_wing(**KW)
-        model = RefModel(mesh, shell_bc_func=_root,
-                         element_wise_material=True)
-        assert "precond_factory" in \
-            model.fea.states["disp_solid"].solver_opts
-        f, th, E, nu, rho = (jnp.asarray(a) for a in
-                             _model_inputs(mesh.n_cells, mesh.n_nodes))
-
-        def J(th_):
-            out = model.evaluate(f, th_, E, nu, rho)
-            return out.compliance, out.disp_solid
-
-        (_, u), g = jax.value_and_grad(J, has_aux=True)(th)
-        return np.asarray(u), np.asarray(g)
+    CG): disp_solid and d compliance / d thickness (pinned)."""
+    return ref["band_model_u"], ref["band_model_grad"]
 
 
 def test_band_model_matches_reference(band_reference):

@@ -3,6 +3,8 @@ imports without nvcc or a GPU and dispatches on each tensor's device; the
 configurations it has not ported raise NotImplementedError, and past the
 band memory guard the model selects the aggregation AMG."""
 
+import glob
+import importlib
 import os
 import pkgutil
 import subprocess
@@ -44,6 +46,14 @@ def test_every_module_imports_without_jax():
               "solvers.precond", "solvers.amg", "assembly.sparse",
               "native.topology"):
         assert "femo_alpha_tpu_torch." + m in mods
+    # the example studies: one module per script under examples/
+    from femo_alpha_tpu_torch.examples import EXAMPLES
+
+    scripts = sorted(os.path.basename(p)[:-3] for p in glob.glob(
+        os.path.join(REPO, "examples", "**", "ex_*.py"), recursive=True))
+    assert sorted(EXAMPLES) == scripts and len(scripts) == 14
+    for m in EXAMPLES:
+        assert "femo_alpha_tpu_torch.examples." + m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -197,3 +207,15 @@ def test_platesim_without_a_card_raises(monkeypatch):
         PlateSim(mesh, element_wise_thickness=True, **kw)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         PlateSim(mesh, **kw)
+
+
+@pytest.mark.parametrize("name", sorted(__import__(
+    "femo_alpha_tpu_torch.examples", fromlist=["EXAMPLES"]).EXAMPLES))
+def test_example_without_a_card_raises(name, monkeypatch):
+    """Each example study's main takes the card when --device is not
+    given and raises where there is none (the test takes the card away
+    itself), before it solves anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"femo_alpha_tpu_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mod.main([])

@@ -42,7 +42,6 @@ from femo_alpha_tpu_torch.assembly.assemble import element_matrices
 from femo_alpha_tpu_torch.mesh import createRectangleMesh
 from femo_alpha_tpu_torch.models import RMShellModel
 from femo_alpha_tpu_torch.models.rm_shell import buckling as bk
-from femo_alpha_tpu_torch.opt import OptimizationProblem
 from femo_alpha_tpu_torch.solvers.direct import (
     apply_bc_dense,
     dense_from_elements,
@@ -224,42 +223,22 @@ def test_inertia_form_with_uhat_matches_reference(plate):
                 ref_bc_dense(A_r, jnp.asarray(f))) <= 1e-12
 
 
-def test_frequency_constrained_opt_history_matches_reference(plate, ref):
+def test_frequency_constrained_opt_history_matches_reference(ref):
     """Three SLSQP iterations of the frequency-constrained study of
     examples/advanced_examples/modal_analysis/ex_frequency_constrained_opt.py
     (its 2 x 1 plate clamped at x = 0, min mass s.t. a 20 % higher
     fundamental frequency, h in [h0/2, 3 h0] from h0 = 0.01, E 7e10,
-    nu 0.3, rho 2700) on the 8x4 mesh of the models above: the objective
-    at each iteration to 1e-8 and the same nit / nfev / njev as the
-    reference's run (jitted, its eigensolve warmed per design point, as
-    its own jitted test runs it), on the scipy it ran with."""
+    nu 0.3, rho 2700) on the 8x4 mesh of the models above, built by the
+    port's module of the script
+    (femo_alpha_tpu_torch/examples/ex_frequency_constrained_opt.py): the
+    objective at each iteration to 1e-8 and the same nit / nfev / njev as
+    the reference's run (jitted, its eigensolve warmed per design point,
+    as its own jitted test runs it), on the scipy it ran with."""
+    from femo_alpha_tpu_torch.examples import ex_frequency_constrained_opt
+
     assert scipy.__version__ == str(ref["scipy_version"])
-    h0 = 0.01
-    model = plate["port"]
-    pde = model.shell_pde
-    nel = model.mesh.n_cells
-    pm = pde.mass_form()
-    Et, nut, dt = (torch.full((nel,), v, dtype=torch.float64)
-                   for v in (7.0e10, 0.3, 2700.0))
-    zu = torch.zeros(pde.VU.n_dofs, dtype=torch.float64)
-
-    def ev(dv):
-        th = dv["thickness"]
-        return {"lam1": model.modal_eigenvalues(th, Et, nut, dt,
-                                                n_modes=1)[0],
-                "mass": assemble_scalar(pm, th, {"density": dt,
-                                                 "uhat": zu})}
-
-    th0 = torch.full((nel,), h0, dtype=torch.float64)
-    with torch.no_grad():
-        lam0 = float(ev({"thickness": th0})["lam1"])
-        mass0 = float(ev({"thickness": th0})["mass"])
-    target = (1.2 * np.sqrt(lam0)) ** 2
-    prob = OptimizationProblem(ev, device="cpu")
-    prob.add_design_variable("thickness", h0 * np.ones(nel), lower=0.5 * h0,
-                             upper=3 * h0)
-    prob.set_objective("mass", scaler=1.0 / mass0)
-    prob.add_constraint("lam1", lower=target, scaler=1.0 / target)
+    ex = ex_frequency_constrained_opt.build(nx=8, ny=4, device="cpu")
+    prob = ex["problem"]
     _, res = prob.solve(maxiter=3, ftol=1e-8, report=False)
     hist_r = ref["opt_history"]
     assert len(prob.history) == len(hist_r) == 3

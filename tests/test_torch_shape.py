@@ -38,6 +38,7 @@ from femo_alpha_tpu.models import RMShellModel as RefModel
 
 import femo_alpha_tpu_torch.assembly.affine as affine
 from femo_alpha_tpu_torch.benchmarks import planform_direction, planform_shape
+from femo_alpha_tpu_torch.examples import ex_aeroelastic_interface
 from femo_alpha_tpu_torch.mesh import StructuredQuadMesh, createRectangleMesh
 from femo_alpha_tpu_torch.models import RMShellModel
 
@@ -306,15 +307,13 @@ def test_aeroelastic_interface_gradients_match_reference(ref_env):
 
     val_r, (gs_r, gt_r) = jax.value_and_grad(agg_r, argnums=(0, 1))(
         jnp.asarray(0.1), jnp.asarray(th0))
-    model = RMShellModel(mesh, shell_bc_func=_bc, element_wise_material=True,
-                         device="cpu")
-    assert model.shell_pde.W.n_dofs <= 6000  # the dense path
+    # the port's side through the module of the script
+    # (femo_alpha_tpu_torch/examples/ex_aeroelastic_interface.py)
+    ex = ex_aeroelastic_interface.build(device="cpu")
+    assert ex["model"].shell_pde.W.n_dofs <= 6000  # the dense path
     stretch = torch.tensor(0.1, **KW).requires_grad_(True)
     th = torch.tensor(th0, requires_grad=True)
-    e = torch.tensor(eta)
-    nd = torch.stack([stretch * span * e, torch.zeros_like(e),
-                      torch.zeros_like(e)], dim=1)
-    out = model.evaluate(pressure, th, *mat, node_disp=nd)
+    out = ex["evaluate"]({"thickness": th, "stretch": stretch})
     out.aggregated_stress.backward()
     assert abs(float(out.aggregated_stress) / float(val_r) - 1.0) <= 1e-8
     assert abs(float(stretch.grad) / float(gs_r) - 1.0) <= 1e-6

@@ -1,14 +1,16 @@
 """The default aircraft configuration of the port on the CPU, against the
-live JAX package: gmsh meshes, generated wings, the penalty facet form
+JAX package: gmsh meshes, generated wings, the penalty facet form
 (exterior and interior facets), the stress outputs, and RMShellModel with
 penalty BCs, mesh tags and every output on a tiny tagged wing (n_dofs
 <= 6000, so both packages take the dense f64 Cholesky path).
 
-Inputs are made with numpy from a seed and handed to both packages; f64
-throughout. The reference runs with its FEMO_* solver flags unset
-(FEMO_MG_F32, FEMO_LANE_MAJOR, FEMO_HOSTLOOP, FEMO_CG_DF, FEMO_OP_STORAGE);
-run with FEMO_COMPILE_CACHE=0 if its values look wrong (a stale compile
-cache once gave wrong numerics, ROADMAP.md Queue 3). Tolerances: 1e-12
+Inputs are made with numpy from a seed; f64 throughout. The meshes are
+compared with the JAX package's readers and generator live (host numpy);
+the forms' and the model's JAX results at the same inputs are pinned in
+tests/reference_digits/wing.npz by `tools/wing_reference_digits.py
+tests` (the JAX package with its FEMO_* solver flags unset:
+FEMO_MG_F32, FEMO_LANE_MAJOR, FEMO_HOSTLOOP, FEMO_CG_DF,
+FEMO_OP_STORAGE; with FEMO_COMPILE_CACHE=0). Tolerances: 1e-12
 relative for the forms (the same arithmetic in another order), 1e-8 for
 the model's outputs (the p-norms, sigma^100, at 100 x 1e-8) and 1e-6 for
 its gradient (two dense f64 Cholesky solves of a system with beta = 1e15
@@ -20,17 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
-from femo_alpha_tpu.assembly.assemble import assemble_scalar as ref_scalar
-from femo_alpha_tpu.assembly.assemble import (
-    assemble_scalar_subset as ref_subset,
-)
 from femo_alpha_tpu.mesh import createWingShellMesh as ref_wing
 from femo_alpha_tpu.mesh import readFEAMesh as ref_read
-from femo_alpha_tpu.models import RMShellModel as RefModel
-from femo_alpha_tpu.models.rm_shell.pde import RMShellPDE as RefPDE
 
 from femo_alpha_tpu_torch.assembly.assemble import (
     assemble_scalar,
@@ -41,9 +34,15 @@ from femo_alpha_tpu_torch.models import RMShellModel
 from femo_alpha_tpu_torch.models.rm_shell.pde import RMShellPDE
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
-REF_FLAGS = ("FEMO_MG_F32", "FEMO_LANE_MAJOR", "FEMO_HOSTLOOP", "FEMO_CG_DF",
-             "FEMO_OP_STORAGE")
+REF_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "reference_digits", "wing.npz")
 MESH_KEYS = ("coords", "conn", "input_global_indices", "original_cell_index")
+
+
+@pytest.fixture(scope="module")
+def ref():
+    with np.load(REF_NPZ) as z:
+        return {k: z[k] for k in z.files}
 
 
 def _root(x):
@@ -97,11 +96,10 @@ def test_xdmf_reader_is_not_ported():
     assert np.array_equal(mesh.coords, np.asarray(ref.coords))
 
 
-def _pdes(n_chord, n_span, ribs):
+def _pde(n_chord, n_span, ribs):
     kw = dict(n_chord=n_chord, n_span=n_span, rib_stations=ribs)
-    return (RMShellPDE(createWingShellMesh(**kw), element_wise_material=True,
-                       device="cpu"),
-            RefPDE(ref_wing(**kw), element_wise_material=True))
+    return RMShellPDE(createWingShellMesh(**kw), element_wise_material=True,
+                      device="cpu")
 
 
 def _params(rng, nel, nn, uhat_scale=0.0):
@@ -110,39 +108,32 @@ def _params(rng, nel, nn, uhat_scale=0.0):
             "uhat": uhat_scale * rng.standard_normal(3 * nn)}
 
 
-def test_penalty_facet_form_matches_reference():
+def test_penalty_facet_form_matches_reference(ref):
     """Residual and element blocks of the penalty facet energy, on exterior
     (root) and interior (rib station, with its non-manifold junction)
     facets, under a mesh motion uhat: <= 1e-12 relative."""
-    pde, ref = _pdes(6, 10, (5,))
+    pde = _pde(6, 10, (5,))
     mesh = pde.mesh
     ff = pde.make_penalty_facet_form(_root_and_rib)
-    rf = ref.make_penalty_facet_form(_root_and_rib)
     n_int = len(mesh.interior_facets(_root_and_rib)[0])
     assert n_int > 0 and len(ff.cells) > n_int
     rng = np.random.default_rng(0)
     u = 1e-3 * rng.standard_normal(pde.W.n_dofs)
     p = {"uhat": 1e-3 * rng.standard_normal(3 * mesh.n_nodes)}
     pt = {k: torch.as_tensor(v) for k, v in p.items()}
-    pj = {k: jnp.asarray(v) for k, v in p.items()}
     r = ff.assemble_residual(torch.as_tensor(u), pt).numpy()
-    r_ref = np.asarray(jax.jit(rf.assemble_residual)(jnp.asarray(u), pj))
-    assert _rel(r, r_ref) <= 1e-12
+    assert _rel(r, ref["facet_residual"]) <= 1e-12
     e = float(ff.assemble_scalar(torch.as_tensor(u), pt))
-    e_ref = float(jax.jit(rf.assemble_scalar)(jnp.asarray(u), pj))
-    assert abs(e / e_ref - 1) <= 1e-12
+    assert abs(e / float(ref["facet_energy"]) - 1) <= 1e-12
     Ae = ff.element_ops(torch.as_tensor(u), pt).permute(2, 0, 1).numpy()
-    ops = jax.jit(rf.element_ops)(jnp.asarray(u), pj)
-    Ae_ref = np.concatenate([np.asarray(a) for a, _ in ops])
-    dm_ref = np.concatenate([np.asarray(d) for _, d in ops])
-    np.testing.assert_array_equal(ff.block.dofmap, dm_ref)
-    assert _rel(Ae, Ae_ref) <= 1e-12
+    np.testing.assert_array_equal(ff.block.dofmap, ref["facet_dofmap"])
+    assert _rel(Ae, ref["facet_blocks"]) <= 1e-12
 
 
-def test_stress_and_scalar_forms_match_reference():
+def test_stress_and_scalar_forms_match_reference(ref):
     """p-norm stress (plain, masked and over a cell subset), the von Mises
     DG1 projection, volume, elastic energy and surface area: <= 1e-12."""
-    pde, ref = _pdes(4, 6, (3,))
+    pde = _pde(4, 6, (3,))
     mesh = pde.mesh
     nel, nn = mesh.n_cells, mesh.n_nodes
     rng = np.random.default_rng(1)
@@ -150,36 +141,26 @@ def test_stress_and_scalar_forms_match_reference():
     u = 1e-5 * rng.standard_normal(pde.W.n_dofs)
     p = _params(rng, nel, nn, uhat_scale=1e-3)
     pt = {k: torch.as_tensor(v) for k, v in p.items()}
-    pj = {k: jnp.asarray(v) for k, v in p.items()}
-    ut, uj = torch.as_tensor(u), jnp.asarray(u)
-    assert abs(pde.surface_area() / ref.surface_area() - 1) <= 1e-12
+    ut = torch.as_tensor(u)
+    assert abs(pde.surface_area() / float(ref["surface_area"]) - 1) <= 1e-12
     cells = mesh.cell_tags[2]
     mask = np.zeros(nel)
     mask[cells] = 1.0
-    jscalar = jax.jit(ref_scalar, static_argnums=0)
-    ref_pn = ref.pnorm_stress_form()
-    pairs = [
-        (assemble_scalar(pde.pnorm_stress_form(), ut, pt),
-         jscalar(ref_pn, uj, pj)),
-        (assemble_scalar(pde.pnorm_stress_form(cell_mask=mask), ut,
-                         {**pt, "_mask": torch.as_tensor(mask)}),
-         jscalar(ref.pnorm_stress_form(cell_mask=mask), uj,
-                 {**pj, "_mask": jnp.asarray(mask)})),
-        (assemble_scalar_subset(pde.pnorm_stress_form(), ut, pt, cells),
-         jax.jit(lambda u_, p_: ref_subset(ref_pn, u_, p_, cells))(uj, pj)),
-        (assemble_scalar(pde.elastic_energy_form(), ut, pt),
-         jscalar(ref.elastic_energy_form(), uj, pj)),
-        (assemble_scalar(pde.volume_form(), pt["thickness"],
-                         {"uhat": pt["uhat"]}),
-         jscalar(ref.volume_form(), pj["thickness"], {"uhat": pj["uhat"]})),
+    got = [
+        assemble_scalar(pde.pnorm_stress_form(), ut, pt),
+        assemble_scalar(pde.pnorm_stress_form(cell_mask=mask), ut,
+                        {**pt, "_mask": torch.as_tensor(mask)}),
+        assemble_scalar_subset(pde.pnorm_stress_form(), ut, pt, cells),
+        assemble_scalar(pde.elastic_energy_form(), ut, pt),
+        assemble_scalar(pde.volume_form(), pt["thickness"],
+                        {"uhat": pt["uhat"]}),
     ]
-    for got, want in pairs:
-        assert abs(float(got) / float(want) - 1) <= 1e-12
+    for g, want in zip(got, ref["scalar_forms"], strict=True):
+        assert abs(float(g) / float(want) - 1) <= 1e-12
     project, V = pde.von_mises_dg1_projection()
-    ref_project, _ = ref.von_mises_dg1_projection()
     vm = project(ut, pt).numpy()
     assert vm.shape == (V.n_dofs,)
-    assert _rel(vm, jax.jit(ref_project)(uj, pj)) <= 1e-12
+    assert _rel(vm, ref["von_mises_dg1"]) <= 1e-12
 
 
 # ---------------------------------------------------------------- the model
@@ -199,31 +180,10 @@ def _model_inputs(nel, nn):
 
 
 @pytest.fixture(scope="module")
-def tiny_reference():
+def tiny_reference(ref):
     """The JAX package on the tiny tagged wing: every output and the
-    gradient of aggregated_stress (computed once)."""
-    with pytest.MonkeyPatch.context() as mp:
-        for flag in REF_FLAGS:
-            mp.delenv(flag, raising=False)
-        mesh = ref_wing(**KW)
-        model = RefModel(mesh, shell_bc_func=_root,
-                         element_wise_material=True,
-                         mesh_tags={t: np.asarray(c)
-                                    for t, c in mesh.cell_tags.items()})
-        f, th, E, nu, rho = _model_inputs(mesh.n_cells, mesh.n_nodes)
-
-        def agg(th_):
-            out = model.evaluate(jnp.asarray(f), th_, jnp.asarray(E),
-                                 jnp.asarray(nu), jnp.asarray(rho))
-            d = out.to_dict()
-            return out.aggregated_stress, {k: d[k] for k in OUTPUTS
-                                           if k != "aggregated_stress"}
-
-        (val, outs), g = jax.value_and_grad(agg, has_aux=True)(
-            jnp.asarray(th))
-        res = {k: np.asarray(v) for k, v in outs.items()}
-        res["aggregated_stress"] = float(val)
-        return res, np.asarray(g)
+    gradient of aggregated_stress (pinned)."""
+    return {k: ref[f"tiny_{k}"] for k in OUTPUTS}, ref["tiny_grad"]
 
 
 def test_tiny_wing_model_matches_reference(tiny_reference):

@@ -25,7 +25,7 @@ tests/data/pav_like_wing_2388.msh (2,388 quads, 35,370 dofs), E 71.7e9,
 nu 0.33, rho 2780, the elliptic 4,000 Pa lift pressure; min mass/mass0
 subject to aggregated_stress <= 503e6/1.5 (scaler 1.5/503e6), 2,388
 thicknesses in [0.001, 0.02] from h0 = 0.005, ftol 1e-8, maxiter
-MAXITER (by default 2, chip_smoke.py's OPT_MAXITER). It prints the scaled objective at each SLSQP
+MAXITER (by default 1, chip_smoke.py's OPT_MAXITER). It prints the scaled objective at each SLSQP
 iteration (callback order), the final mass and aggregated stress, and
 nit / nfev / njev, with the scipy version (the SLSQP trajectory depends
 on it). Runs eagerly (jit=False: the same numbers without compiling the
@@ -49,7 +49,7 @@ from femo_alpha_tpu.mesh import readFEAMesh  # noqa: E402
 from femo_alpha_tpu.models import RMShellModel  # noqa: E402
 from femo_alpha_tpu.opt import OptimizationProblem  # noqa: E402
 
-MAXITER = 2
+MAXITER = 1
 
 
 class RecordingProblem(OptimizationProblem):
