@@ -109,7 +109,21 @@ design, against the JAX digits, preconditioner and CG passes, the
 quality gate, a host SuperLU solve, a central difference of the
 state-dependent part of dJ/dh and the warm calls' bits, with the fused
 operator (cell and facet blocks) and K2 at nd 24 / 27 against their
-twins. Then the generic FEA library:
+twins. Then the JAX package's f32 solver configuration (`f32` phase,
+selected as the JAX package lets a user select it on the CPU): the 128x32
+headline built under FEMO_MG_F32=1 (the f32 MG hierarchy, its V-cycle on
+the f32 builds of the fused operator and K2), a first call and three warm
+calls from zero against the JAX digits and CG passes of
+tools/f32_reference_digits.py, the quality gate with a host SuperLU
+solve, the warm calls' bits, device ops and busy share beside the slice's
+f64 numbers; the same plate under FEMO_OP_STORAGE=f32 (the f32-stored
+fine operator on the fused operator's f32-matrix, f64-vector build) held
+to the JAX run's outcome; the f32 band factor with its shift guard as
+CG's preconditioner on the 18x66 penalty wing; the f32 AMG on the 10x24
+wing against the JAX digits and CG passes; PlateSim 40x20 with the f32
+step MG against its f64 MG and the JAX digits; AffineDesignOperator's
+f32 matvec on K1; and each f32 build against its twin at these shapes.
+Then the generic FEA library:
 PoissonModel P1 at the scale point's size (1024x1024 triangles,
 1,050,625 dofs, nd 3) through Jacobi-CG, evaluate + compliance backward,
 against a host SuperLU solve, the JAX digits and a central difference,
@@ -655,8 +669,10 @@ def fused_case(ck, label, Ae, spec, free, x):
     n = free.shape[0]
     nbytes = (Ae.nbytes + x.nbytes + free.nbytes + y.nbytes + dm_T.nbytes
               + inv.nbytes)
+    # operations in the vectors' dtype (f64 for f32 matrices under f64
+    # vectors)
     b = bound(nbytes, 2 * nd * nd * nc + n * inv.shape[1] + 3 * n,
-              str(Ae.dtype).split(".")[-1])
+              str(x.dtype).split(".")[-1])
     ms = cuda_ms(lambda: op(x), 100)
     return err, (f"{label}/nc={nc}:err={err:.2e},ms={ms:.5f},"
                  f"plain_ms={cuda_ms(plain, 20):.5f},"
@@ -894,7 +910,9 @@ def phase_slice(ck):
     if not nodal <= NODAL_BAR:
         fail(f"nodal error vs direct {nodal:.3e} > {NODAL_BAR:.0e}")
     return launches, {"forward": out["iters_fwd"],
-                      "adjoint": out["iters_adj"]}
+                      "adjoint": out["iters_adj"]}, {
+        "warm_median_s": out["wall_s"], "warm_s": out["warm_s"],
+        "iters_fwd": out["iters_fwd"], "iters_adj": out["iters_adj"]}
 
 
 def _device_busy(fn):
@@ -3883,6 +3901,493 @@ def phase_elements(ck, name):
     return launches, kcases
 
 
+# the f32 phase: the JAX package's f32 solver configuration, selected as
+# the JAX package lets a user select it on the CPU; its digits from
+# `FEMO_PLATFORM=cpu python tools/f32_reference_digits.py chip` (f32 MG,
+# f32 storage and f64 at 128x32 from 8 threads and pinned to 1 and 4
+# cores; the band on the 18x66 wing; the AMG on the 10x24 wing; PlateSim
+# 40x20 over F32_SIM_STEPS steps)
+F32_MG_DIGITS = {"compliance": (4.387311686060391e-03, 1e-8),
+                 "grad_norm": (4.980959085810746e-04, 1e-6)}
+F32_MG_PASSES = {"forward": [[15, 5], [16, 5], [15, 5]],
+                 "adjoint": [[15, 5], [15, 5], [15, 5]]}
+# the f32 operator storage: its J, the f64 run's, its converged flags and
+# passes; the port is held within twice the storage's own error
+F32_STORAGE = {"compliance": 4.387786395464118e-03,
+               "compliance_f64": 4.387311686124194e-03,
+               "converged": [False, False],
+               "passes": {"forward": [[12, 4], [12, 4], [12, 4]],
+                          "adjoint": [[12, 4], [12, 4], [12, 4]]}}
+F32_BAND_MESH = (18, 66)
+F32_BAND = {"iters": 9, "unshifted_finite": True}
+F32_BAND_BAR = 2e-8         # tests/test_band.py::test_band_f32_precond_cg
+F32_AMG_MESH = (10, 24)
+F32_AMG_DIGITS = {"compliance": (5.043169257331772e-01, 1e-8),
+                  "grad_norm": (6.642850553467896e-01, 1e-8)}
+# CG iterations per pass (first, restart) of the JAX run, the same at 1, 4
+# and 8 cores (tools/f32_reference_digits.py amg-span). The restart pass,
+# from the true residual at the floor, follows the rounding of the f32
+# state: the port's own runs take 324-340 there (CPU at 1 and 4 threads,
+# and the H100), the JAX run 351-355. So each solve's first pass is held within
+# F32_AMG_SLACK of the JAX run's, and its whole count to at most
+# F32_AMG_SLACK above the JAX run's (fewer iterations are no defect)
+F32_AMG_PASSES = {"forward": [766, 351], "adjoint": [766, 355]}
+F32_AMG_SLACK = 0.05
+F32_SIM_STEPS = 5
+F32_SIM_DIGITS = {"total_strain_energy": (5.908759547500446e-03, 1e-8),
+                  "grad_norm": (7.074342495010860e-03, 1e-6)}
+# CG iterations of each step solve, the forward's then the adjoint's
+F32_SIM_ITERS = [57, 56, 54, 54, 54, 54, 53, 55, 55, 64]
+F32_KERNEL_BAR = 1e-6       # each f32 build against its plain twin
+
+
+def _f32_bench(**env):
+    """LibraryBench(128, 32) on the card built with the FEMO_* flags `env`
+    (read at model construction)."""
+    from femo_alpha_tpu_torch.benchmarks import LibraryBench
+
+    saved = {k: os.environ.pop(k, None)
+             for k in ("FEMO_MG_F32", "FEMO_OP_STORAGE")}
+    os.environ.update(env)
+    try:
+        return LibraryBench(nx=128, ny=32)
+    finally:
+        for k in ("FEMO_MG_F32", "FEMO_OP_STORAGE"):
+            os.environ.pop(k, None)
+            if saved[k] is not None:
+                os.environ[k] = saved[k]
+
+
+def _f32_run(b):
+    """One evaluate + compliance backward of a LibraryBench at its nominal
+    design from zero (no warm start), synchronized: (J, u, dJ/dh)."""
+    import torch
+
+    b.model.model._last_states = {}
+    th = b.th0.clone().requires_grad_(True)
+    out = b.model.evaluate(b.f, th, b.E, b.nu, b.rho)
+    out.compliance.backward()
+    torch.cuda.synchronize()
+    return out.compliance.detach(), out.disp_solid.detach(), th.grad
+
+
+def _digits_errs(got, digits):
+    return {k: abs(got[k] / want - 1.0) for k, (want, _) in digits.items()}
+
+
+def phase_f32(ck, slice_f64):
+    """The JAX package's f32 solver configuration on the card (its TPU
+    default; the port's default stays f64): the 128x32 headline with the
+    f32 MG hierarchy (FEMO_MG_F32=1: f32 coarse-level forms and bases, the
+    V-cycle state in f32 on the fused operator's and K2's f32 builds), a
+    first call and three warm calls from zero, against the JAX digits and
+    CG passes, bench.py's quality gate with a host SuperLU solve, a warm
+    repeat bit for bit, device ops and busy share beside the slice's f64
+    numbers; the same plate under FEMO_OP_STORAGE=f32 held to the JAX
+    package's outcome; the f32 band factor with its shift guard as CG's
+    preconditioner on the 18x66 wing's penalty system; the f32 AMG
+    (AMGPrecondFactory(dtype=float32)) on the 10x24 wing against the JAX
+    digits and CG counts; PlateSim 40x20 with the f32 step MG against its
+    f64 MG and the JAX digits; AffineDesignOperator.matvec in f32; and each
+    f32 kernel build (and the fused operator's f32-matrix, f64-vector
+    build of the storage, bit for bit the f64 build's values) against its
+    twin at these shapes."""
+    import numpy as np
+    import torch
+
+    from femo_alpha_tpu_torch.assembly.assemble import element_matrices
+    from femo_alpha_tpu_torch.benchmarks import (
+        MG_PASS_SLACK,
+        cg_passes_agree,
+        gust_history,
+        quality_verdict,
+    )
+    from femo_alpha_tpu_torch.mesh import (
+        createRectangleMesh,
+        createWingShellMesh,
+    )
+    from femo_alpha_tpu_torch.models import RMShellModel
+    from femo_alpha_tpu_torch.models.dynamic_rm_shell import PlateSim
+    from femo_alpha_tpu_torch.models.dynamic_rm_shell.mg import (
+        build_platesim_mg,
+    )
+    from femo_alpha_tpu_torch.models.rm_shell.pde import RMShellPDE
+    from femo_alpha_tpu_torch.solvers import band as B
+    from femo_alpha_tpu_torch.solvers.amg import AMGPrecondFactory
+    from femo_alpha_tpu_torch.solvers.krylov import cg_solve
+    from femo_alpha_tpu_torch.solvers.linear import _sum_of_blocks
+    from femo_alpha_tpu_torch.solvers.multigrid import schwarz_arrays_T
+    from femo_alpha_tpu_torch.utils.quality import residual_and_floor
+
+    f32 = torch.float32
+    t_phase = time.perf_counter()
+    path = {k: 0 for k in ck.launch_counts()}
+    path32 = dict(path)
+
+    def add_path():
+        for k, v in ck.launch_counts().items():
+            path[k] += v
+        for k, v in ck.launch_counts_f32().items():
+            path32[k] += v
+
+    # -- the headline with the f32 hierarchy --------------------------------
+    t0 = time.perf_counter()
+    b = _f32_bench(FEMO_MG_F32="1")
+    setup_s = time.perf_counter() - t0
+    pde, mg = b.pde, b.model.mg
+    if getattr(pde._pc, "dtype", None) != f32 or len(mg.levels) != 3:
+        fail(f"f32: want the f32 hierarchy on 3 levels, got dtype "
+             f"{getattr(pde._pc, 'dtype', None)}, {len(mg.levels)} levels")
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    J, u, g = _f32_run(b)
+    first_s = time.perf_counter() - t0
+    passes = {k: v["passes"] for k, v in pde.last_info.items()}
+    calls, warm = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        calls.append(_f32_run(b))
+        warm.append(time.perf_counter() - t0)
+    head_launches, head32 = ck.launch_counts(), ck.launch_counts_f32()
+    add_path()
+    bitwise = all(torch.equal(x, y) for x, y in zip(calls[1], calls[2]))
+    del calls
+    ops_warm, device_ms = _device_busy(lambda: _f32_run(b))
+    if min(head32["constrained_matvec_T"], head32["affine_combine"]) <= 0:
+        fail(f"f32: the hierarchy ran no f32 kernel build: {head32}")
+    params = b.params(b.th0)
+    with torch.no_grad():
+        rel_res, res_floor = residual_and_floor(pde, params, u)
+    nodal, direct_s = _host_direct(pde, params, u, spd=True)
+    got = {"compliance": float(J), "grad_norm": float(torch.linalg.norm(g))}
+    errs = _digits_errs(got, F32_MG_DIGITS)
+    passes_ok = all(cg_passes_agree(passes[k], F32_MG_PASSES[k],
+                                    MG_PASS_SLACK) for k in passes)
+    warm_med = statistics.median(warm)
+    say("f32", case="headline", mesh="128x32", n_dofs=b.n_dofs,
+        levels=len(mg.levels), hierarchy="float32",
+        setup_s=f"{setup_s:.2f}", first_call_s=f"{first_s:.3f}",
+        warm_s=json.dumps([round(w, 4) for w in warm]),
+        warm_median_s=f"{warm_med:.4f}",
+        f64_warm_median_s=f"{slice_f64['warm_median_s']:.4f}",
+        passes=json.dumps(passes), passes_jax=json.dumps(F32_MG_PASSES),
+        f64_iters=json.dumps([slice_f64["iters_fwd"],
+                              slice_f64["iters_adj"]]),
+        device_ops_per_warm_call=ops_warm,
+        device_busy_share=None if device_ms is None
+        else f"{device_ms / 1e3 / warm_med:.3f}",
+        f64_device_ops="not measured (the f64 route is not run again)",
+        **{k: f"{v:.15e}" for k, v in got.items()},
+        rel_err_vs_jax=json.dumps({k: f"{v:.3e}" for k, v in errs.items()}),
+        rel_res=f"{rel_res:.3e}", res_floor=f"{res_floor:.3e}",
+        nodal_err_vs_direct=f"{nodal:.3e}", direct_s=f"{direct_s:.1f}",
+        quality=quality_verdict(rel_res, res_floor, nodal),
+        warm_bitwise=bitwise, launches=json.dumps(head_launches),
+        launches_f32=json.dumps(head32))
+    if not (bool(torch.isfinite(u).all()) and bool(torch.isfinite(g).all())
+            and u.shape == (b.n_dofs,) and g.shape == (4096,)):
+        fail("f32: non-finite or mis-shaped displacement / gradient")
+    for k, (want, bar) in F32_MG_DIGITS.items():
+        if not errs[k] <= bar:
+            fail(f"f32 {k} {got[k]:.15e} vs the JAX package's {want:.15e} "
+                 f"(bar {bar})")
+    if not passes_ok:
+        fail(f"f32 CG passes {passes} vs the JAX runs' {F32_MG_PASSES} "
+             f"(slack {MG_PASS_SLACK})")
+    if not nodal <= NODAL_TARGET:
+        fail(f"f32 nodal error vs direct {nodal:.3e} > {NODAL_TARGET:.0e}")
+    if quality_verdict(rel_res, res_floor, nodal) != "OK":
+        fail(f"f32 quality gate: rel_res {rel_res:.3e}, floor "
+             f"{res_floor:.3e}, nodal {nodal:.3e}")
+    if not bitwise:
+        fail("f32: two warm calls from zero differ")
+
+    # the f32 kernel builds at the hierarchy's shapes, on its real state
+    cases = {}
+    with torch.no_grad():
+        pc = pde._pc
+        st = pc.setup_state(None, params,
+                            [pde.element_matrices_fn(None, params)],
+                            pc.prepare(params))
+        x = torch.randn(b.n_dofs, dtype=f32, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(3))
+        for k in (0, 1):
+            W = mg.levels[k]["space"]
+            xk = x[:W.n_dofs].contiguous()
+            err, cases[f"fused_level{k}"] = fused_case(
+                ck, f"f32_level{k}", st["Ae"][k], W, st["free"][k], xk)
+            if not err <= F32_KERNEL_BAR:
+                fail(f"f32: fused f32 at level {k}: rel err {err:.3e}")
+        B1 = mg.levels[1]["affine_asm"]._aff.basis
+        th1 = mg.levels[0]["coarsen"]({kk: v.to(f32) for kk, v in
+                                       params.items()})["thickness"]
+        err, cases["k2_level1"] = k2_case(ck, "f32_level1", B1, th1, (1, 3))
+        if not err <= F32_KERNEL_BAR:
+            fail(f"f32: K2 f32 at level 1: rel err {err:.3e}")
+        # AffineDesignOperator.matvec of the fine basis cast to f32: one K1
+        # launch per basis term
+        aff = pde.element_matrices_fn._aff
+        xm = torch.randn(b.n_dofs, dtype=torch.float64, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(4))
+        y64 = aff.matvec(b.th0, mg.levels[0]["space"], xm)
+        ck.reset_launch_counts()
+        y32 = aff.astype(f32).matvec(b.th0.float(), mg.levels[0]["space"],
+                                     xm.float())
+        torch.cuda.synchronize()
+        mv32 = ck.launch_counts_f32()
+        add_path()
+        mv_err = rel_norm(y32.double(), y64)
+    if mv32["cell_matvec_T"] != 2 or not mv_err <= F32_KERNEL_BAR:
+        fail(f"f32: AffineDesignOperator.astype(float32).matvec: "
+             f"{mv32} launches, rel err {mv_err:.3e}")
+    del st, b, pde, mg, aff
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the f32 operator storage -------------------------------------------
+    bs = _f32_bench(FEMO_OP_STORAGE="f32")
+    emf = bs.pde.element_matrices_fn
+    if emf.storage != "f32":
+        fail(f"f32: FEMO_OP_STORAGE=f32 gave storage {emf.storage}")
+    ck.reset_launch_counts()
+    Js, us, gs = _f32_run(bs)
+    sto_launches, sto32 = ck.launch_counts(), ck.launch_counts_f32()
+    add_path()
+    info = bs.pde.last_info
+    sto_passes = {k: v["passes"] for k, v in info.items()}
+    sto_conv = [bool(info[k]["converged"]) for k in ("forward", "adjoint")]
+    js, j64 = F32_STORAGE["compliance"], F32_STORAGE["compliance_f64"]
+    sto_err = abs(float(Js) - js)
+    say("f32", case="storage", basis=str(emf._aff.basis.dtype),
+        compliance=f"{float(Js):.15e}", compliance_jax=f"{js:.15e}",
+        abs_err_vs_jax=f"{sto_err:.3e}",
+        storage_err_jax=f"{abs(js - j64):.3e}",
+        passes=json.dumps(sto_passes),
+        passes_jax=json.dumps(F32_STORAGE["passes"]),
+        converged=json.dumps(sto_conv),
+        converged_jax=json.dumps(F32_STORAGE["converged"]),
+        launches=json.dumps(sto_launches), launches_f32=json.dumps(sto32))
+    if not sto_err <= 2.0 * abs(js - j64):
+        fail(f"f32 storage: J {float(Js):.15e} lies {sto_err:.3e} from the "
+             f"JAX package's {js:.15e}, past twice its own f32 error "
+             f"{abs(js - j64):.3e}")
+    if sto_conv != F32_STORAGE["converged"]:
+        fail(f"f32 storage: converged {sto_conv}, the JAX run's "
+             f"{F32_STORAGE['converged']}")
+    if not all(cg_passes_agree(sto_passes[k], F32_STORAGE["passes"][k],
+                               MG_PASS_SLACK) for k in sto_passes):
+        fail(f"f32 storage: CG passes {sto_passes} vs the JAX runs' "
+             f"{F32_STORAGE['passes']}")
+    if min(sto32["affine_combine"], sto32["constrained_matvec_T"]) <= 0:
+        fail(f"f32 storage: K2's f32 build or the fused operator's "
+             f"f32-matrix build never ran: {sto32}")
+    # the fused operator's f32-matrix, f64-vector build on the stored
+    # operator: against its twin, and bit for bit the f64 build's values
+    # on the matrices upcast
+    with torch.no_grad():
+        Ae_s = emf(None, bs.params(bs.th0))
+        Ws, free_s = bs.model.shell_pde.W, bs.pde.free_mask
+        xs = torch.randn(bs.n_dofs, dtype=torch.float64, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(6))
+        err, cases["fused_storage"] = fused_case(ck, "f32f64", Ae_s, Ws,
+                                                 free_s, xs)
+        dm_T, inv = Ws.lane_tables(Ae_s.device)
+        same = torch.equal(
+            ck.constrained_matvec_T(Ae_s, free_s, dm_T, inv)(xs),
+            ck.constrained_matvec_T(Ae_s.double(), free_s, dm_T, inv)(xs))
+    if not (Ae_s.dtype == f32 and err <= FUSED_BAR["float64"] and same):
+        fail(f"f32 storage: the f32-matrix fused build: Ae {Ae_s.dtype}, "
+             f"rel err {err:.3e}, equal to the f64 build: {same}")
+    del bs, Ae_s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the f32 band factor on the 18x66 wing ------------------------------
+    mesh = createWingShellMesh(n_chord=F32_BAND_MESH[0],
+                               n_span=F32_BAND_MESH[1],
+                               rib_stations=(22, 44))
+    pw = RMShellPDE(mesh, element_wise_material=True)
+    nel, n = mesh.n_cells, pw.W.n_dofs
+    kw = dict(dtype=torch.float64, device="cuda")
+    prm = {"thickness": torch.full((nel,), 0.006, **kw),
+           "E": torch.full((nel,), 69e9, **kw),
+           "nu": torch.full((nel,), 0.33, **kw),
+           "uhat": torch.zeros(3 * mesh.n_nodes, **kw),
+           "F_solid": torch.zeros(3 * mesh.n_nodes, **kw)}
+    ff = pw.make_penalty_facet_form(lambda xx: np.abs(xx[:, 1]) < 1e-9)
+    with torch.no_grad():
+        z = torch.zeros(n, **kw)
+        ops = [element_matrices(pw.make_residual_form(), z, prm)
+               .permute(1, 2, 0).contiguous(), ff.element_ops(z, prm)]
+        mv = _sum_of_blocks(list(zip(ops, [pw.W, ff.block])),
+                            torch.ones(n, **kw))
+        band = B.BandCholPrecond(pw.W, [pw.W.dofmap, ff.block.dofmap],
+                                 dtype=f32)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            return res, (time.perf_counter() - t) * 1e3
+
+        R, asm_ms = timed(lambda: band.assemble(ops))
+        st32, fac32_ms = timed(lambda: B.band_factor(R, band.w, band.m, f32,
+                                                     band.shift))
+        st64, fac64_ms = timed(lambda: B.band_factor(
+            band.assemble(ops), band.w, band.m, torch.float64))
+        rhs = torch.as_tensor(np.random.default_rng(1).standard_normal(n),
+                              **kw)
+        band.apply(st32, rhs)
+        _, app32_ms = timed(lambda: band.apply(st32, rhs))
+        _, app64_ms = timed(lambda: band.apply(st64, rhs))
+        ck.reset_launch_counts()
+        xb, binfo = cg_solve(mv, rhs, M=lambda v: band.apply(st32, v),
+                             tol=1e-8, maxiter=60)
+        torch.cuda.synchronize()
+        band_launches = ck.launch_counts()
+        add_path()
+        brel = float(torch.linalg.norm(mv(xb) - rhs)
+                     / torch.linalg.norm(rhs))
+    say("f32", case="band", mesh=f"{F32_BAND_MESH[0]}x{F32_BAND_MESH[1]}",
+        n_dofs=n, half_bandwidth=band.b, block=band.w,
+        factor_dtype=str(st32["Ld"].dtype), shifted=st32["shifted"],
+        shifted_jax=not F32_BAND["unshifted_finite"],
+        iters=binfo["iters"], iters_jax=F32_BAND["iters"],
+        converged=binfo["converged"], rel_res=f"{brel:.3e}",
+        assemble_ms=f"{asm_ms:.2f}", factor_f32_ms=f"{fac32_ms:.2f}",
+        factor_f64_ms=f"{fac64_ms:.2f}", apply_f32_ms=f"{app32_ms:.2f}",
+        apply_f64_ms=f"{app64_ms:.2f}", launches=json.dumps(band_launches))
+    if not (binfo["converged"] and brel <= F32_BAND_BAR):
+        fail(f"f32 band: CG converged={binfo['converged']}, rel_res "
+             f"{brel:.3e} (bar {F32_BAND_BAR})")
+    del ops, R, st32, st64, band, mv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the f32 AMG on the 10x24 wing --------------------------------------
+    saved = os.environ.pop("FEMO_BAND_MEM_GB", None)
+    os.environ["FEMO_BAND_MEM_GB"] = "0.000001"
+    try:
+        wmesh = createWingShellMesh(n_chord=F32_AMG_MESH[0],
+                                    n_span=F32_AMG_MESH[1],
+                                    rib_stations=(12,), shuffle_seed=3)
+        model = RMShellModel(wmesh, shell_bc_func=lambda xx: xx[:, 1] < 1e-9,
+                             element_wise_material=True)
+    finally:
+        os.environ.pop("FEMO_BAND_MEM_GB", None)
+        if saved is not None:
+            os.environ["FEMO_BAND_MEM_GB"] = saved
+    spde = model.fea.states["disp_solid"].pde
+    if not isinstance(spde._pc, AMGPrecondFactory):
+        fail(f"f32 amg: the guard selected {type(spde._pc).__name__}")
+    spde._pc.dtype = f32
+    nel, nn = wmesh.n_cells, wmesh.n_nodes
+    fw = np.zeros(3 * nn)
+    fw[2::3] = 200.0
+    thw = torch.full((nel,), 0.2, requires_grad=True, **kw)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    outw = model.evaluate(fw, thw, np.full(nel, 4.32e8), np.zeros(nel),
+                          np.full(nel, 100.0))
+    outw.compliance.backward()
+    torch.cuda.synchronize()
+    amg_s = time.perf_counter() - t0
+    amg_launches, amg32 = ck.launch_counts(), ck.launch_counts_f32()
+    add_path()
+    amg_iters = {k: v["iters"] for k, v in spde.last_info.items()}
+    amg_passes = {k: v["passes"] for k, v in spde.last_info.items()}
+    gota = {"compliance": float(outw.compliance.detach()),
+            "grad_norm": float(torch.linalg.norm(thw.grad))}
+    errsa = _digits_errs(gota, F32_AMG_DIGITS)
+    say("f32", case="amg", mesh=f"{F32_AMG_MESH[0]}x{F32_AMG_MESH[1]}",
+        n_dofs=model.shell_pde.W.n_dofs, seconds=f"{amg_s:.2f}",
+        **{k: f"{v:.15e}" for k, v in gota.items()},
+        rel_err_vs_jax=json.dumps({k: f"{v:.3e}" for k, v in errsa.items()}),
+        iters=json.dumps(amg_iters), passes=json.dumps(amg_passes),
+        passes_jax=json.dumps(F32_AMG_PASSES),
+        launches=json.dumps(amg_launches), launches_f32=json.dumps(amg32))
+    for k, (want, bar) in F32_AMG_DIGITS.items():
+        if not errsa[k] <= bar:
+            fail(f"f32 amg {k} {gota[k]:.15e} vs the JAX package's "
+                 f"{want:.15e} (bar {bar})")
+    for k, (first, restart) in F32_AMG_PASSES.items():
+        got_first = amg_passes[k][0]
+        if not (abs(got_first - first) <= F32_AMG_SLACK * first
+                and amg_iters[k] <= (1.0 + F32_AMG_SLACK) * (first
+                                                            + restart)):
+            fail(f"f32 amg {k} CG passes {amg_passes[k]} vs the JAX run's "
+                 f"[{first}, {restart}] (slack {F32_AMG_SLACK})")
+    if min(amg32["cell_matvec_T"], amg32["constrained_matvec_T"]) <= 0:
+        fail(f"f32 amg: the f32 setup ran no f32 kernel build: {amg32}")
+    with torch.no_grad():
+        Ae_w = spde.element_matrices_fn(None, model.fe_inputs(
+            fw, thw.detach(), np.full(nel, 4.32e8), np.zeros(nel)))
+        inv_T, _ = schwarz_arrays_T(Ae_w.float(), spde._pc.amg.space,
+                                    torch.ones(spde.n_dofs, dtype=f32,
+                                               device="cuda"))
+        vcT = torch.randn(inv_T.shape[1:], dtype=f32, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(5))
+        err, cases["k1_schwarz"] = k1_schwarz_case(ck, inv_T, vcT)
+    if not err <= F32_KERNEL_BAR:
+        fail(f"f32: K1 f32 at the AMG's Schwarz blocks: rel err {err:.3e}")
+    del model, spde, Ae_w, inv_T
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- PlateSim 40x20 with the f32 step MG --------------------------------
+    pmesh = createRectangleMesh(40, 20, (0, 0), (10.0, 2.0), "quad", gdim=3)
+    sim = PlateSim(pmesh, E=4.32e8, nu=0.0, rho=100.0, dt=0.01,
+                   Nsteps=F32_SIM_STEPS, element_wise_thickness=True)
+    fh = gust_history(pmesh.n_nodes, F32_SIM_STEPS, sim.dt)
+
+    def sim_run():
+        th = torch.full((sim.num_var,), 0.1, requires_grad=True, **kw)
+        e = sim.strain_energy_history(sim.simulate(th, fh), th).sum()
+        e.backward()
+        torch.cuda.synchronize()
+        return float(e.detach()), th.grad, [k for _, k in sim.solve_log]
+
+    if sim.solver_method != "mg":
+        fail(f"f32 sim: solver {sim.solver_method}, want the step MG")
+    e64, g64, it64 = sim_run()
+    sim.mg = build_platesim_mg(sim, dtype=f32)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    e32, g32, it32 = sim_run()
+    sim_s = time.perf_counter() - t0
+    sim_launches, sim32 = ck.launch_counts(), ck.launch_counts_f32()
+    add_path()
+    gots = {"total_strain_energy": e32,
+            "grad_norm": float(torch.linalg.norm(g32))}
+    errss = _digits_errs(gots, F32_SIM_DIGITS)
+    say("f32", case="sim", mesh="40x20", steps=F32_SIM_STEPS,
+        n_dofs=sim.fe_dofs, levels=len(sim.mg.levels), seconds=f"{sim_s:.2f}",
+        **{k: f"{v:.15e}" for k, v in gots.items()},
+        rel_err_vs_jax=json.dumps({k: f"{v:.3e}" for k, v in errss.items()}),
+        rel_err_vs_f64=f"{abs(e32 / e64 - 1.0):.3e}",
+        grad_rel_err_vs_f64=f"{rel_norm(g32, g64):.3e}",
+        cg_per_step=json.dumps(it32), cg_per_step_f64=json.dumps(it64),
+        cg_per_step_jax=json.dumps(F32_SIM_ITERS),
+        launches=json.dumps(sim_launches), launches_f32=json.dumps(sim32))
+    for k, (want, bar) in F32_SIM_DIGITS.items():
+        if not errss[k] <= bar:
+            fail(f"f32 sim {k} {gots[k]:.15e} vs the JAX package's "
+                 f"{want:.15e} (bar {bar})")
+    if len(it32) != len(F32_SIM_ITERS) or not all(
+            abs(a - r) <= MG_PASS_SLACK[0] for a, r in zip(it32,
+                                                           F32_SIM_ITERS)):
+        fail(f"f32 sim: CG per step {it32} vs the JAX run's {F32_SIM_ITERS} "
+             f"(slack {MG_PASS_SLACK[0]})")
+    if sim32["constrained_matvec_T"] <= 0:
+        fail(f"f32 sim: the f32 step MG ran no f32 kernel build: {sim32}")
+
+    say("f32", case="phase", launches=json.dumps(path),
+        launches_f32=json.dumps(path32),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    return path, path32, cases
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -3902,28 +4407,53 @@ def main():
     k1 = phase_k1(ck)
     fused = phase_k1_fused(ck)
     k2 = phase_k2(ck)
-    by_path = {}
-    by_path["slice"], slice_iters = phase_slice(ck)
-    by_path.update(wing=phase_wing(ck), transient=phase_transient(ck),
-                   opt=phase_opt(ck), modal=phase_modal(ck),
-                   shape=phase_shape(ck, slice_iters),
-                   shape_opt=phase_shape_opt(ck))
-    by_path["pressure"], vf_mass_case = phase_pressure(ck)
-    by_path["amg"], schwarz_case = phase_amg(ck)
-    by_path["mg_w"] = phase_mg_w(ck)
-    by_path["nodal"] = phase_nodal(ck)
-    by_path["composite"] = phase_composite(ck)
-    by_path["elements_cg1"], cg1_cases = phase_elements(ck, "elements_cg1")
-    by_path["elements_cr"], cr_cases = phase_elements(ck, "elements_cr")
-    by_path["poisson"], poisson_cases = phase_poisson(ck)
-    by_path["nonlinear"] = phase_nonlinear(ck)
-    by_path["elasticity"], elasticity_case = phase_elasticity(ck)
-    by_path["beam"] = phase_beam(ck)
-    by_path["examples"], c172_cases = phase_examples(ck)
-    by_path["scale"], scale_cases = phase_scale(ck)
+    by_path, f32_by_path = {}, {}
+
+    def run(name, phase, *args):
+        """Run one path phase from zeroed launch counts; record its
+        launches (its result, or the first item of it) and, read as it
+        returns, those of the kernels' f32 builds (the phases' twin
+        comparisons after their path runs are f64); return the rest of its
+        result."""
+        ck.reset_launch_counts()
+        result = phase(ck, *args)
+        launches = result[0] if isinstance(result, tuple) else result
+        by_path[name] = launches
+        f32_by_path[name] = ck.launch_counts_f32()
+        return result[1:] if isinstance(result, tuple) else None
+
+    slice_iters, slice_f64 = run("slice", phase_slice)
+    run("wing", phase_wing)
+    run("transient", phase_transient)
+    run("opt", phase_opt)
+    run("modal", phase_modal)
+    run("shape", phase_shape, slice_iters)
+    run("shape_opt", phase_shape_opt)
+    vf_mass_case, = run("pressure", phase_pressure)
+    schwarz_case, = run("amg", phase_amg)
+    run("mg_w", phase_mg_w)
+    run("nodal", phase_nodal)
+    run("composite", phase_composite)
+    cg1_cases, = run("elements_cg1", phase_elements, "elements_cg1")
+    cr_cases, = run("elements_cr", phase_elements, "elements_cr")
+    f32_launches, f32_launches_32, f32_cases = phase_f32(ck, slice_f64)
+    by_path["f32"], f32_by_path["f32"] = f32_launches, f32_launches_32
+    poisson_cases, = run("poisson", phase_poisson)
+    run("nonlinear", phase_nonlinear)
+    elasticity_case, = run("elasticity", phase_elasticity)
+    run("beam", phase_beam)
+    c172_cases, = run("examples", phase_examples)
+    scale_cases, = run("scale", phase_scale)
     at_scale = [_case_numbers(c) for c in scale_cases]
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in by_path["slice"]}
+    launches_32 = {k: sum(p[k] for p in f32_by_path.values())
+                   for k in by_path["slice"]}
+
+    def split(name):
+        return {"launches_f32": launches_32[name],
+                "launches_f32_by_path": {k: p[name] for k, p in
+                                         f32_by_path.items()}}
     if "jax" in sys.modules:
         fail("jax was imported")
     table = [
@@ -3932,13 +4462,19 @@ def main():
          "replaces": "femo_alpha_tpu/assembly/pallas_kernels.py:42",
          "launches": launches["cell_matvec_T"],
          "launches_by_path": {k: p["cell_matvec_T"] for k, p in by_path.items()},
-         **k1, "at_schwarz": _case_numbers(schwarz_case)},
+         **split("cell_matvec_T"),
+         **k1, "at_schwarz": _case_numbers(schwarz_case),
+         "at_f32_schwarz": _case_numbers(f32_cases["k1_schwarz"])},
         {"name": "constrained_matvec_T", "route": "cuda",
          "source": "femo_alpha_tpu_torch/assembly/csrc/constrained_matvec.cu",
          "replaces": "femo_alpha_tpu/assembly/pallas_kernels.py:42",
          "launches": launches["constrained_matvec_T"],
          "launches_by_path": {k: p["constrained_matvec_T"] for k, p in by_path.items()},
+         **split("constrained_matvec_T"),
          **fused, "at_nc_65536": at_scale[0],
+         "at_f32_level0": _case_numbers(f32_cases["fused_level0"]),
+         "at_f32_level1": _case_numbers(f32_cases["fused_level1"]),
+         "at_f32f64_storage": _case_numbers(f32_cases["fused_storage"]),
          "at_vf_mass": _case_numbers(vf_mass_case),
          "at_poisson": _case_numbers(poisson_cases[0]),
          "at_nonsym": _case_numbers(poisson_cases[1]),
@@ -3953,7 +4489,9 @@ def main():
          "replaces": "femo_alpha_tpu/assembly/pallas_kernels.py:149",
          "launches": launches["affine_combine"],
          "launches_by_path": {k: p["affine_combine"] for k, p in by_path.items()},
+         **split("affine_combine"),
          **k2, "at_nc_65536": at_scale[1],
+         "at_f32_level1": _case_numbers(f32_cases["k2_level1"]),
          "at_cg1": _case_numbers(cg1_cases[-1]),
          "at_cr": _case_numbers(cr_cases[-1]),
          "at_c172": _case_numbers(c172_cases[1])},

@@ -6,9 +6,16 @@ from .assemble import (
     FemForm,
     assemble_residual,
     assemble_scalar,
+    cell_matvec,
     element_matrices,
+    gather_dofs,
     make_constrained_matvec_T,
+    make_jvp_matvec,
+    make_matvec,
     make_matvec_T,
+    scatter_add,
+    transpose_cellwise,
+    transpose_cellwise_inv,
 )
 from .bc import DirichletBC, combine_bcs, constrain_matvec, lift_rhs
 from .cuda_kernels import affine_combine, cell_matvec_T, constrained_matvec_T
@@ -24,6 +31,13 @@ __all__ = [
     "assemble_residual",
     "assemble_scalar",
     "element_matrices",
+    "make_matvec",
+    "scatter_add",
+    "gather_dofs",
+    "cell_matvec",
+    "make_jvp_matvec",
+    "transpose_cellwise",
+    "transpose_cellwise_inv",
     "make_constrained_matvec_T",
     "make_matvec_T",
     "DirichletBC",

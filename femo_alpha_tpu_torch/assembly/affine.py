@@ -10,9 +10,14 @@ the basis M_k is extracted once from len(powers) probe assemblies and a
 small Vandermonde solve; each new design then costs one K2 combine
 (cuda_kernels.affine_combine) instead of a jacfwd assembly.
 
-The port stores the basis lane-major (K, nd, nd, nc) in native f64 or f32:
-the JAX package's float-float storage and its disk cache exist for the
-TPU's lack of f64 and for its compile times, and are not carried over.
+The port stores the basis lane-major (K, nd, nd, nc) in native f64 (the
+default) or f32: `dtype=float32` (the f32 MG levels: the probes assembled
+by an f32 form, combined in f64, then rounded) or `storage="f32"` (the
+fine operator's basis rounded to f32, selected on the model by
+FEMO_OP_STORAGE=f32), whose combine is K2's f32 build and whose Ae then
+runs the fused operator's f32 build. The JAX package's float-float
+storage ("df") and its disk cache exist for the TPU's lack of f64 and for
+its compile times, and are not carried over.
 
 The design gradient of a product A(theta) x is the closed-form
 `vjp_theta`; `AffineOperator` / `AffineApply` make such a product (one
@@ -28,7 +33,7 @@ import numpy as np
 import torch
 
 from .assemble import element_matrices, make_constrained_matvec_T
-from .cuda_kernels import affine_combine
+from .cuda_kernels import affine_combine, cell_matvec_T
 
 
 def _affine_combine(B, theta, powers):
@@ -43,12 +48,19 @@ class AffineDesignOperator:
     state (zeros for linear problems); params_of: theta -> full params dict;
     powers: exponents of the polynomial dependence; probe_scale: magnitude
     of the probe values; dtype: dtype of the stored basis (None = the
-    assembly dtype)."""
+    assembly dtype); storage: "f32" rounds the finished basis to f32 (an
+    f32-accurate operator), None keeps it. The probes are assembled in the
+    form's dtype and combined in f64, as the JAX package combines them."""
 
     def __init__(self, form, u0, params_of, key="thickness", powers=(1, 3),
-                 probe_scale=1.0, chunk=8192, dtype=None):
+                 probe_scale=1.0, chunk=8192, dtype=None, storage=None):
+        if storage not in (None, "f32"):
+            raise ValueError(f"AffineDesignOperator: storage={storage!r} "
+                             "(None or 'f32'; the float-float 'df' is a "
+                             "TPU storage and is not ported)")
         self.form = form
         self.key = key
+        self.storage = storage
         self.powers = tuple(int(p) for p in powers)
         K = len(self.powers)
         nc = form.space.mesh.n_cells
@@ -62,16 +74,43 @@ class AffineDesignOperator:
             for t in probes]
         basis = []
         for k in range(K):
-            Mk = sum(float(Ginv[k, i]) * Ae_probes[i] for i in range(K))
+            Mk = sum(float(Ginv[k, i]) * Ae_probes[i].double()
+                     for i in range(K))
             Mk = Mk.permute(1, 2, 0)  # (nd, nd, nc)
             basis.append(Mk if dtype is None else Mk.to(dtype))
-        self.basis = torch.stack(basis).contiguous()
+        basis = torch.stack(basis).contiguous()
+        self.basis = basis.float() if storage == "f32" else basis
         self.nc = nc
+
+    def astype(self, dtype):
+        """A view of this operator with the basis cast to `dtype` (e.g. an
+        f32 copy feeding a preconditioner hierarchy)."""
+        out = object.__new__(AffineDesignOperator)
+        out.form, out.key, out.powers = self.form, self.key, self.powers
+        out.storage = self.storage
+        out.basis = self.basis.to(dtype)
+        out.nc = self.nc
+        return out
 
     def element_matrices(self, theta, basis=None):
         """Ae(theta): (nd, nd, nc) lane-major."""
         B = self.basis if basis is None else basis
         return _affine_combine(B, theta, self.powers)
+
+    def matvec(self, theta, space, x):
+        """A(theta) @ x without materializing Ae: one per-cell pass per
+        basis term (K1 on basis[k], in x's dtype, on the card), each
+        scaled by theta^p_k, then the space's lane-major scatter (fixed
+        order). The basis is read in x's dtype, as the JAX package reads
+        it."""
+        th = theta.to(x.dtype)
+        xcT = space.gather_T(x).contiguous()
+        ycT = None
+        for k, p in enumerate(self.powers):
+            term = (th ** p)[None, :] * cell_matvec_T(
+                self.basis[k].to(x.dtype).contiguous(), xcT)
+            ycT = term if ycT is None else ycT + term
+        return space.scatter_add_T(ycT)
 
     def vjp_theta(self, theta, u, lam, space, basis=None):
         """lam^T dA(theta)/dtheta u per cell, in closed form:
@@ -113,6 +152,7 @@ class CachedAffineAssembler:
     matrices. `verify=True` checks the decomposition against one direct
     assembly when the basis is built. Parameters in `ignore_keys` do not
     enter the Jacobian (pure load terms) and are zeroed in the probes.
+    dtype / storage: see AffineDesignOperator.
 
     When a parameter that enters the Jacobian, other than the design field,
     requires grad (`grad_keys`: a shape study differentiates uhat), no
@@ -122,9 +162,10 @@ class CachedAffineAssembler:
 
     def __init__(self, form, key="thickness", powers=(1, 3),
                  probe_scale=None, chunk=8192, dtype=None, verify=True,
-                 ignore_keys=("F_solid",)):
+                 ignore_keys=("F_solid",), storage=None):
         self.form = form
         self.key = key
+        self.storage = storage
         self.powers = tuple(int(p) for p in powers)
         self.chunk = chunk
         self.dtype = dtype
@@ -160,7 +201,8 @@ class CachedAffineAssembler:
                              device=theta.device)
             self._aff = AffineDesignOperator(
                 self.form, u0, params_of, key=self.key, powers=self.powers,
-                probe_scale=ps, chunk=self.chunk, dtype=self.dtype)
+                probe_scale=ps, chunk=self.chunk, dtype=self.dtype,
+                storage=self.storage)
             if self.verify:
                 self._aff.verify(theta, u0, params_of, chunk=self.chunk)
             self._cache_key = ck

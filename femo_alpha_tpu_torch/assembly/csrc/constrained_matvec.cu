@@ -30,6 +30,13 @@
 // stays in the 50 MB L2 across the 13 applications of one V-cycle, so the
 // L2 can beat the HBM bound there.
 //
+// Builds: f64, f32, and f32 element matrices with f64 vectors and f64
+// arithmetic (femo_constrained_matvec_T_f32f64: the fine operator under
+// storage="f32"; each thread then streams 8 bytes of f32 Ae for its two
+// f64 cells, the tiling of the f64 build, so its values are the f64
+// build's on the upcast matrices bit for bit). At 128x32 it moves 24.92 MB
+// of Ae and the same 3 x 0.50 MB + 1.65 MB: 28.07 MB, 8.4 us.
+//
 // Design, against what held the standalone K1 (cell_matvec.cu) back:
 // - Pass 1 (cell pass): a block takes a tile of cells and ALL nd rows of
 //   them. It stages free[d] * x[d] for the tile's dofs in shared memory
@@ -75,6 +82,11 @@ __device__ __forceinline__ void load(const double* p, double (&v)[2]) {
   v[0] = t.x;
   v[1] = t.y;
 }
+__device__ __forceinline__ void load(const float* p, float (&v)[2]) {
+  const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+  v[0] = t.x;
+  v[1] = t.y;
+}
 __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
   const float4 t = __ldg(reinterpret_cast<const float4*>(p));
   v[0] = t.x;
@@ -100,8 +112,11 @@ __device__ __forceinline__ void store(T* p, const T (&v)[1]) {
 // blockDim = (threads along cells, rows); a block's tile is
 // blockDim.x * VEC cells. Requires nc % VEC == 0 and 16-byte aligned Ae and
 // yc when VEC > 1.
-template <typename T, int VEC>
-__global__ void cmv_cell_pass_kernel(const T* __restrict__ A,
+// TA: the element matrices' type; T: the vectors' and the arithmetic's
+// (TA = T, or f32 matrices with f64 vectors: the f32-stored operator
+// applied in f64, each product of an f32 entry exact in f64)
+template <typename TA, typename T, int VEC>
+__global__ void cmv_cell_pass_kernel(const TA* __restrict__ A,
                                      const T* __restrict__ x,
                                      const T* __restrict__ free_mask,
                                      const int32_t* __restrict__ dofmap_T,
@@ -129,12 +144,12 @@ __global__ void cmv_cell_pass_kernel(const T* __restrict__ A,
   if (c >= nc) return;
   const int64_t slab = static_cast<int64_t>(nd) * nc;  // one row i of Ae
   for (int i = threadIdx.y; i < nd; i += blockDim.y) {
-    const T* a = A + i * slab + c;
+    const TA* a = A + i * slab + c;
     T acc[VEC];
 #pragma unroll
     for (int v = 0; v < VEC; ++v) acc[v] = T(0);
     for (int j0 = 0; j0 < nd; j0 += kBatch) {
-      T av[kBatch][VEC];
+      TA av[kBatch][VEC];
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
         if (j0 + k < nd) load(a + static_cast<int64_t>(j0 + k) * nc, av[k]);
@@ -144,7 +159,9 @@ __global__ void cmv_cell_pass_kernel(const T* __restrict__ A,
         if (j0 + k < nd) {
           const T* xr = xs + (j0 + k) * tile + cl;
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) acc[v] = fma_rn(av[k][v], xr[v], acc[v]);
+          for (int v = 0; v < VEC; ++v) {
+            acc[v] = fma_rn(static_cast<T>(av[k][v]), xr[v], acc[v]);
+          }
         }
       }
     }
@@ -174,8 +191,8 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename T, int VEC>
-cudaError_t launch_cell_pass(const T* A, const T* x, const T* free_mask,
+template <typename TA, typename T, int VEC>
+cudaError_t launch_cell_pass(const TA* A, const T* x, const T* free_mask,
                              const int32_t* dofmap_T, T* yc, int nd, int nc,
                              int sms, cudaStream_t stream) {
   // threads along cells: 128 bytes of a row of Ae per block, halved while
@@ -193,7 +210,7 @@ cudaError_t launch_cell_pass(const T* A, const T* x, const T* free_mask,
   const size_t smem = static_cast<size_t>(nd) * tx * VEC * sizeof(T);
   if (smem > static_cast<size_t>(kMaxStaticSmem)) return cudaErrorInvalidValue;
   const int ty = nd < kMaxThreads / tx ? nd : kMaxThreads / tx;
-  cmv_cell_pass_kernel<T, VEC>
+  cmv_cell_pass_kernel<TA, T, VEC>
       <<<static_cast<unsigned>(blocks(tx)), dim3(tx, ty), smem, stream>>>(
           A, x, free_mask, dofmap_T, yc, nd, nc);
   return cudaGetLastError();
@@ -214,8 +231,8 @@ int sm_count(int* sms) {
   return 0;
 }
 
-template <typename T>
-int launch(const T* A, const T* x, const T* free_mask,
+template <typename TA, typename T>
+int launch(const TA* A, const T* x, const T* free_mask,
            const int32_t* dofmap_T, const int32_t* inv, T* yc, T* y,
            int64_t nd, int64_t nc, int64_t n, int64_t w, void* stream) {
   if (nd <= 0 || nc <= 0 || n <= 0) return 0;
@@ -229,11 +246,11 @@ int launch(const T* A, const T* x, const T* free_mask,
   const int ind = static_cast<int>(nd), inc = static_cast<int>(nc);
   cudaError_t err;
   if (nc % kVec == 0 && aligned16(A) && aligned16(yc)) {
-    err = launch_cell_pass<T, kVec>(A, x, free_mask, dofmap_T, yc, ind, inc,
-                                    sms, s);
+    err = launch_cell_pass<TA, T, kVec>(A, x, free_mask, dofmap_T, yc, ind,
+                                        inc, sms, s);
   } else {
-    err = launch_cell_pass<T, 1>(A, x, free_mask, dofmap_T, yc, ind, inc,
-                                 sms, s);
+    err = launch_cell_pass<TA, T, 1>(A, x, free_mask, dofmap_T, yc, ind, inc,
+                                     sms, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int in = static_cast<int>(n);
@@ -251,14 +268,25 @@ extern "C" int femo_constrained_matvec_T_f64(
     const double* A, const double* x, const double* free_mask,
     const int32_t* dofmap_T, const int32_t* inv, double* yc, double* y,
     int64_t nd, int64_t nc, int64_t n, int64_t w, void* stream) {
-  return launch<double>(A, x, free_mask, dofmap_T, inv, yc, y, nd, nc, n, w,
-                        stream);
+  return launch<double, double>(A, x, free_mask, dofmap_T, inv, yc, y, nd, nc,
+                                n, w, stream);
 }
 
 extern "C" int femo_constrained_matvec_T_f32(
     const float* A, const float* x, const float* free_mask,
     const int32_t* dofmap_T, const int32_t* inv, float* yc, float* y,
     int64_t nd, int64_t nc, int64_t n, int64_t w, void* stream) {
-  return launch<float>(A, x, free_mask, dofmap_T, inv, yc, y, nd, nc, n, w,
-                       stream);
+  return launch<float, float>(A, x, free_mask, dofmap_T, inv, yc, y, nd, nc,
+                              n, w, stream);
+}
+
+// f32 element matrices (storage="f32"), f64 vectors, f64 arithmetic: the
+// same operator, bit for bit, as the f64 build on the matrices upcast, with
+// half of Ae's bytes
+extern "C" int femo_constrained_matvec_T_f32f64(
+    const float* A, const double* x, const double* free_mask,
+    const int32_t* dofmap_T, const int32_t* inv, double* yc, double* y,
+    int64_t nd, int64_t nc, int64_t n, int64_t w, void* stream) {
+  return launch<float, double>(A, x, free_mask, dofmap_T, inv, yc, y, nd, nc,
+                               n, w, stream);
 }

@@ -45,10 +45,11 @@ _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 _LOCK = threading.Lock()
 _LIB = None
 
-# launches of each kernel since the last reset_launch_counts(); the plain
-# twins never count
+# launches of each kernel since the last reset_launch_counts(), and those
+# of its f32 build among them; the plain twins never count
 _LAUNCHES = {"cell_matvec_T": 0, "affine_combine": 0,
              "constrained_matvec_T": 0}
+_LAUNCHES_F32 = dict(_LAUNCHES)
 _BUILD_INFO = {}
 
 
@@ -57,9 +58,22 @@ def launch_counts():
     return dict(_LAUNCHES)
 
 
+def launch_counts_f32():
+    """The launches of launch_counts() that read f32 matrices: the f32
+    builds, and the fused operator's f32-matrix, f64-vector build."""
+    return dict(_LAUNCHES_F32)
+
+
 def reset_launch_counts():
     for k in _LAUNCHES:
         _LAUNCHES[k] = 0
+        _LAUNCHES_F32[k] = 0
+
+
+def _count(name, dtype):
+    _LAUNCHES[name] += 1
+    if dtype == torch.float32:
+        _LAUNCHES_F32[name] += 1
 
 
 def build_info():
@@ -156,7 +170,8 @@ def load_library():
                            vp]
             fn.restype = i32
         for name in ("femo_constrained_matvec_T_f64",
-                     "femo_constrained_matvec_T_f32"):
+                     "femo_constrained_matvec_T_f32",
+                     "femo_constrained_matvec_T_f32f64"):
             fn = getattr(lib, name)
             fn.argtypes = [vp] * 7 + [i64] * 4 + [vp]
             fn.restype = i32
@@ -173,6 +188,10 @@ def _check(lib, rc, what):
 
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+# the fused operator's builds by (vector dtype, matrix dtype)
+_FUSED = {(torch.float64, torch.float64): "f64",
+          (torch.float32, torch.float32): "f32",
+          (torch.float64, torch.float32): "f32f64"}
 
 
 def _require_kernel_inputs(what, tensors, dtype):
@@ -225,7 +244,7 @@ def cell_matvec_T(Ae_T, xc_T):
         rc = fn(Ae_T.data_ptr(), xc_T.data_ptr(), y.data_ptr(), nd, nc,
                 stream)
     _check(lib, rc, "cell_matvec_T")
-    _LAUNCHES["cell_matvec_T"] += 1
+    _count("cell_matvec_T", Ae_T.dtype)
     return y
 
 
@@ -250,7 +269,9 @@ def gather_sum(yc, inv):
 def constrained_matvec_T_plain(Ae_T, x, free, dofmap_T, inv):
     """Plain twin of the fused operator, pass by pass: the cell pass
     yc = (Ae_T * (free * x)[dofmap_T][None]).sum(1), the dof pass over
-    inv, then the mask and the identity on constrained dofs."""
+    inv, then the mask and the identity on constrained dofs; in the
+    vectors' dtype (f32 matrices with f64 vectors are read in f64)."""
+    Ae_T = Ae_T.to(free.dtype)
     v = (free * x).index_select(0, dofmap_T.reshape(-1))
     yc = (Ae_T * v.view(dofmap_T.shape)[None]).sum(1)
     return free * gather_sum(yc, inv) + (1.0 - free) * x
@@ -259,7 +280,9 @@ def constrained_matvec_T_plain(Ae_T, x, free, dofmap_T, inv):
 def constrained_matvec_T(Ae_T, free, dofmap_T, inv):
     """The operator x -> free*A(free*x) + (1-free)*x of lane-major element
     matrices Ae_T (nd, nd, nc), a 0/1 mask `free` (n,) and the int32 tables
-    dofmap_T (nd, nc) and inv (n, w) of spaces/space.py::lane_tables.
+    dofmap_T (nd, nc) and inv (n, w) of spaces/space.py::lane_tables. The
+    vectors take free's dtype: Ae_T's (f64 or f32), or f64 with f32
+    matrices (the f32-stored operator, applied in f64 arithmetic).
 
     Everything is checked once, here. On CPU tensors the operator is the
     plain twin; on CUDA tensors each application is one torch.empty and
@@ -276,9 +299,10 @@ def constrained_matvec_T(Ae_T, free, dofmap_T, inv):
         raise ValueError(f"constrained_matvec_T: tables "
                          f"{tuple(dofmap_T.shape)}, {tuple(inv.shape)} for "
                          f"Ae_T {tuple(Ae_T.shape)} and {n} dofs")
-    if Ae_T.dtype not in _SUFFIX or free.dtype != Ae_T.dtype:
+    if Ae_T.dtype not in _SUFFIX or (free.dtype, Ae_T.dtype) not in _FUSED:
         raise TypeError(f"constrained_matvec_T: Ae_T {Ae_T.dtype}, free "
-                        f"{free.dtype} (need one of float32/float64)")
+                        f"{free.dtype} (need both float32 or float64, or "
+                        "float32 matrices with float64 vectors)")
     if dofmap_T.dtype != torch.int32 or inv.dtype != torch.int32:
         raise TypeError(f"constrained_matvec_T: tables {dofmap_T.dtype}, "
                         f"{inv.dtype} (need int32)")
@@ -286,9 +310,11 @@ def constrained_matvec_T(Ae_T, free, dofmap_T, inv):
         raise RuntimeError("constrained_matvec_T has no autograd rule")
     tensors = (Ae_T, free, dofmap_T, inv)
     if all(t.device.type == "cpu" for t in tensors):
-        return lambda x: constrained_matvec_T_plain(Ae_T, x, free, dofmap_T,
+        A = Ae_T.to(free.dtype)  # read in the vectors' dtype, once
+        return lambda x: constrained_matvec_T_plain(A, x, free, dofmap_T,
                                                     inv)
-    _require_kernel_inputs("constrained_matvec_T", (Ae_T, free), Ae_T.dtype)
+    _require_kernel_inputs("constrained_matvec_T", (Ae_T,), Ae_T.dtype)
+    _require_kernel_inputs("constrained_matvec_T", (free,), free.dtype)
     for t in (dofmap_T, inv):
         if t.device != Ae_T.device or not t.is_contiguous():
             raise ValueError(f"constrained_matvec_T: table on {t.device} "
@@ -313,16 +339,20 @@ class _ConstrainedMatvecT:
         if nd * nc >= 2 ** 31 or n >= 2 ** 31:
             raise ValueError(f"constrained_matvec_T: {nd}x{nc} cell values "
                              f"or {n} dofs overflow the int32 tables")
+        if free.device != dev:
+            raise ValueError(f"constrained_matvec_T: free on {free.device}, "
+                             f"Ae_T on {dev}")
         self.lib = load_library()
-        self.fn = getattr(self.lib,
-                          "femo_constrained_matvec_T_" + _SUFFIX[Ae_T.dtype])
-        self.yc = torch.empty((nd, nc), dtype=Ae_T.dtype, device=dev)
+        self.fn = getattr(self.lib, "femo_constrained_matvec_T_"
+                          + _FUSED[(free.dtype, Ae_T.dtype)])
+        self.yc = torch.empty((nd, nc), dtype=free.dtype, device=dev)
         self.tensors = (Ae_T, free, dofmap_T, inv)  # keep the pointers alive
         self.ptrs = (Ae_T.data_ptr(), free.data_ptr(), dofmap_T.data_ptr(),
                      inv.data_ptr(), self.yc.data_ptr())
         self.sizes = (nd, nc, n, w)
         self.stream = torch.cuda.current_stream(dev).cuda_stream
-        self.n, self.dtype, self.device = n, Ae_T.dtype, dev
+        self.n, self.dtype, self.device = n, free.dtype, dev
+        self.matrix_dtype = Ae_T.dtype
 
     def __call__(self, x):
         if (x.shape != (self.n,) or x.dtype != self.dtype
@@ -336,7 +366,7 @@ class _ConstrainedMatvecT:
                      *self.sizes, self.stream)
         if rc:
             _check(self.lib, rc, "constrained_matvec_T")
-        _LAUNCHES["constrained_matvec_T"] += 1
+        _count("constrained_matvec_T", self.matrix_dtype)
         return y
 
 
@@ -368,7 +398,7 @@ def _affine_combine_raw(B, theta, powers):
         rc = fn(B.data_ptr(), theta.data_ptr(), out.data_ptr(), K, p,
                 nd * nd, nc, stream)
     _check(lib, rc, "affine_combine")
-    _LAUNCHES["affine_combine"] += 1
+    _count("affine_combine", B.dtype)
     return out
 
 

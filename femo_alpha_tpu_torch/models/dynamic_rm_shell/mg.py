@@ -9,10 +9,15 @@ step operators: each coarser level re-discretizes the step form
 h*M1 + h^3*M3 in the element-wise thickness, so each level re-assembles
 per design through its own affine basis (one K2 combine); with nodal
 thickness each level assembles the step form directly per design (the
-reference's 2/dt^2 M + K/2 per level). Every level is
-lane-major and f64: each smoother step, residual and Lanczos matvec is one
-application of the fused constrained operator. The fine level's operator
-is the PlateSim's own (GeometricMG.setup(..., Ae0=...)).
+reference's 2/dt^2 M + K/2 per level). Every level is lane-major: each
+smoother step, residual and Lanczos matvec is one application of the
+fused constrained operator. The fine level's operator is the PlateSim's
+own (GeometricMG.setup(..., Ae0=...)). The hierarchy is f64 by default;
+`build_platesim_mg(sim, dtype=torch.float32)` builds the JAX package's
+f32 one (its TPU default): f32 coarser levels from f32 forms, the state
+set up in f32 (the fine operator cast down), each V-cycle on the f32
+kernel builds, with the step solve's vectors cast to f32 and back around
+it (plate_sim.py). The hierarchy keeps its `dtype`.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from ..rm_shell.mg import _field_coarsener, can_coarsen, strong_bc_dofs
 def step_form(pde, dt):
     """The step operator's energy (2/dt^2) inertia + elastic/2 on an
     RMShellPDE, with the parameters thickness, E, nu, uhat and the scalar
-    rho."""
+    rho, in the PDE's dtype."""
     c2 = 2.0 / dt ** 2
     inertia = pde.inertia_form(rho_is_param=False).energy_kernel
     elastic = pde.make_elastic_energy_kernel(with_load=False)
@@ -41,13 +46,16 @@ def step_form(pde, dt):
 
     return FemForm(pde.W, energy, kind="energy",
                    param_specs={"thickness": pde.VT, "E": pde.VT,
-                                "nu": pde.VT, "uhat": pde.VU, "rho": None})
+                                "nu": pde.VT, "uhat": pde.VU, "rho": None},
+                   dtype=pde.dtype)
 
 
-def build_platesim_mg(sim, coarsest_cells=64, degree=6, lmin_ratio=0.06,
-                      asm_chunk=8192):
-    """GeometricMG (f64) for a PlateSim's step operator, or None if the
-    mesh is not a coarsenable StructuredQuadMesh.
+def build_platesim_mg(sim, coarsest_cells=64, dtype=None, degree=6,
+                      lmin_ratio=0.06, asm_chunk=8192):
+    """GeometricMG for a PlateSim's step operator, or None if the mesh is
+    not a coarsenable StructuredQuadMesh. dtype: the hierarchy's precision
+    (None: f64; torch.float32: the f32 hierarchy); assign the result to
+    `sim.mg` to use it.
 
     Level params: {"thickness": t_k}; E, nu, rho and dt are fixed PlateSim
     attributes, baked into each coarser level's step form."""
@@ -70,7 +78,8 @@ def build_platesim_mg(sim, coarsest_cells=64, degree=6, lmin_ratio=0.06,
             StructuredQuadMesh(nx_k, ny_k, p0, p1, gdim=mesh.gdim),
             element_wise_material=sim.element_wise_thickness,
             inplane_deg=sim.quad_deg,
-            shear_deg=sim.quad_deg, stress_deg=sim.quad_deg, device=dev)
+            shear_deg=sim.quad_deg, stress_deg=sim.quad_deg, device=dev,
+            dtype=dtype)
         free_k, _ = combine_bcs(
             pde_k.W.n_dofs,
             [DirichletBC(strong_bc_dofs(pde_k, sim.bc_func))], **t64)
@@ -78,7 +87,8 @@ def build_platesim_mg(sim, coarsest_cells=64, degree=6, lmin_ratio=0.06,
         # quality, not solution accuracy); the fine operator's bases in
         # PlateSim keep their verify
         asm_k = CachedAffineAssembler(step_form(pde_k, sim.dt),
-                                      chunk=asm_chunk, verify=False)
+                                      chunk=asm_chunk, dtype=dtype,
+                                      verify=False)
         nT = pde_k.VT.n_dofs
         consts = {"E": torch.full((nT,), float(sim.E), **t64),
                   "nu": torch.full((nT,), float(sim.nu), **t64),
@@ -107,5 +117,7 @@ def build_platesim_mg(sim, coarsest_cells=64, degree=6, lmin_ratio=0.06,
         levels.append(lev)
         if not can_coarsen(nx_k, ny_k, coarsest_cells):
             break
-    return GeometricMG(levels, make_constrained_matvec_T, degree=degree,
-                       lmin_ratio=lmin_ratio)
+    mg = GeometricMG(levels, make_constrained_matvec_T, degree=degree,
+                     lmin_ratio=lmin_ratio)
+    mg.dtype = dtype
+    return mg

@@ -71,7 +71,7 @@ from ...solvers.linear import LinearSolver
 from ...solvers.precond import jacobi_preconditioner
 from ...spaces.pointeval import point_eval_rows
 from ..rm_shell.kinematics import surface_geometry
-from ..rm_shell.mg import strong_bc_dofs
+from ..rm_shell.mg import _cycle_in, strong_bc_dofs
 from ..rm_shell.pde import RMShellPDE, _interp_vec
 
 
@@ -159,10 +159,13 @@ class _StepOperators:
                                        method="dense")
             return
         if self.method == "mg":
-            state = sim.mg.setup({"thickness": theta.detach()}, Ae0=Ae)
+            # the hierarchy's own precision (build_platesim_mg(dtype=)):
+            # an f32 state takes the vector cast to f32 and back
+            state = sim.mg.setup({"thickness": theta.detach()}, Ae0=Ae,
+                                 dtype=getattr(sim.mg, "dtype", None))
 
             def Minv(v):
-                return sim.mg.apply(state, v)
+                return _cycle_in(sim.mg, state, v)
         else:
             # Jacobi: the constrained operator's diagonal
             with torch.no_grad():
@@ -368,7 +371,8 @@ class PlateSim:
                 from .mg import build_platesim_mg
 
                 self.mg = build_platesim_mg(
-                    self, coarsest_cells=self.mg_coarsest_cells)
+                    self, coarsest_cells=self.mg_coarsest_cells,
+                    dtype=getattr(self.mg, "dtype", None))
             c2 = 2.0 / self.dt ** 2
             self._BA = torch.stack([c2 * BM[0] + 0.5 * BK[0], 0.5 * BK[1]])
             self._step_key = key

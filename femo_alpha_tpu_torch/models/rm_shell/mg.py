@@ -12,6 +12,13 @@ reference's affine=False branch). A laminate is coarsened with the levels
 by 2x2 cell means of its A/B/D/A_s (`_coarsen_composite`). Every level is
 lane-major, so each smoother step, residual and Lanczos matvec is one
 application of the fused constrained operator.
+
+`dtype=torch.float32` builds the JAX package's f32 hierarchy (its TPU
+configuration, selected on the CPU by FEMO_MG_F32=1): each coarser level
+an f32 RMShellPDE and an f32 affine basis assembled from f32 forms, the
+whole V-cycle state in f32 (GeometricMG.setup(dtype=)), its passes on the
+f32 builds of the fused operator and K2; ShellMGPrecond(mg, dtype=) casts
+the vector to f32 and back around each cycle. The default stays f64.
 """
 
 from __future__ import annotations
@@ -57,14 +64,16 @@ def can_coarsen(nx, ny, coarsest_cells=256):
         coarsest_cells
 
 
-def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
+def build_shell_mg(pde, bc_func, coarsest_cells=256, dtype=None, degree=6,
                    lmin_ratio=0.06, asm_chunk=8192, device=None, cycle="V",
                    smoother="block_jacobi"):
-    """GeometricMG (f64) for an RMShellPDE on a StructuredQuadMesh, or None
-    when the mesh cannot be coarsened at least once (odd dims / already
-    small). device: where the levels live (the solve's device); None means
-    the CUDA card. cycle ("V" or "W") and smoother ("block_jacobi" or
-    "schwarz") go to the GeometricMG."""
+    """GeometricMG for an RMShellPDE on a StructuredQuadMesh, or None when
+    the mesh cannot be coarsened at least once (odd dims / already small).
+    dtype: the precision of the coarser levels' forms and bases (None: f64;
+    torch.float32: the f32 hierarchy; pass the same dtype to
+    ShellMGPrecond). device: where the levels live (the solve's device);
+    None means the CUDA card. cycle ("V" or "W") and smoother
+    ("block_jacobi" or "schwarz") go to the GeometricMG."""
     from ...mesh import StructuredQuadMesh
     from .pde import RMShellPDE
 
@@ -83,7 +92,8 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
             elementwise_pressure=pde.elementwise_pressure,
             element_type=pde.element_type, inplane_deg=pde.inplane_deg,
             shear_deg=pde.shear_deg,
-            bot_plane=pde.bot_plane, composite=composite_k, device=device)
+            bot_plane=pde.bot_plane, composite=composite_k, device=device,
+            dtype=dtype)
         free_k, _ = combine_bcs(
             pde_k.W.n_dofs, [DirichletBC(strong_bc_dofs(pde_k, bc_func))],
             dtype=torch.float64, device=device)
@@ -103,7 +113,8 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, degree=6,
         # quality, not solution accuracy); the fine operator's basis in
         # RMShellModel keeps its verify
         asm_k = CachedAffineAssembler(pde_k.make_residual_form(),
-                                      chunk=asm_chunk, verify=False)
+                                      chunk=asm_chunk, dtype=dtype,
+                                      verify=False)
 
         def make_Ae(p, asm_k=asm_k):
             # without a basis (nodal material, the BOT plane, a laminate,
@@ -158,35 +169,41 @@ def shell_mg_precond_factory(mg, dtype=None):
     """A plain precond_factory for ImplicitPDE's solver_opts: it sets the
     hierarchy up for the current parameters at each linearization (every
     level assembled from the parameters, the fine one included) and
-    returns the V-cycle application. dtype: the hierarchy's precision,
-    which is f64 in the port (None or torch.float64)."""
-    if dtype not in (None, torch.float64):
-        raise NotImplementedError(
-            f"shell_mg_precond_factory(dtype={dtype}): the port's hierarchy "
-            "runs in f64 (see ROADMAP.md)")
+    returns the V-cycle application. dtype: the hierarchy's precision
+    (None: f64, the default; torch.float32 with a hierarchy built by
+    build_shell_mg(dtype=torch.float32): the vector is cast to f32 and
+    back around each cycle)."""
 
     def factory(u, params):
         keys = ("thickness", "E", "nu", "uhat", "F_solid")
-        state = mg.setup({k: params[k] for k in keys})
-
-        def M(v):
-            return mg.apply(state, v)
-
-        return M
+        state = mg.setup({k: params[k] for k in keys}, dtype=dtype)
+        return lambda v: _cycle_in(mg, state, v)
 
     return factory
+
+
+def _cycle_in(mg, state, v):
+    """One cycle of a GeometricMG state in the state's dtype, returned in
+    v's (the vector cast to an f32 state's dtype and back)."""
+    sdt = state["Ae"][0].dtype
+    if sdt == v.dtype:
+        return mg.apply(state, v)
+    return mg.apply(state, v.to(sdt)).to(v.dtype)
 
 
 class ShellMGPrecond:
     """Split-protocol preconditioner for ImplicitPDE: `prepare` builds (or
     reuses) the per-level affine bases, `setup_state` makes the V-cycle
     state for the current design, `apply_state` applies one V-cycle. The
-    forward solve's state is reused by the adjoint solve."""
+    forward solve's state is reused by the adjoint solve. dtype: the
+    hierarchy's precision (see build_shell_mg); the vector is cast to it
+    and back around each cycle."""
 
     _KEYS = ("thickness", "E", "nu", "uhat", "F_solid")
 
-    def __init__(self, mg: GeometricMG):
+    def __init__(self, mg: GeometricMG, dtype=None):
         self.mg = mg
+        self.dtype = dtype
 
     def prepare(self, params, grad_keys=frozenset()):
         """Per-level affine bases. Level 0's entry is None: setup_state
@@ -211,8 +228,13 @@ class ShellMGPrecond:
         return tuple(bases)
 
     def setup_state(self, u, params, ops_Ae, aux):
+        """The hierarchy's state in `dtype` (None: f64). The fine level is
+        the solve's own operator, cast to that dtype (an f32-stored fine
+        operator, storage="f32", enters an f64 hierarchy upcast)."""
         p = {k: params[k] for k in self._KEYS if k in params}
-        return self.mg.setup(p, Ae0=ops_Ae[0], bases=aux if aux else None)
+        return self.mg.setup(p, Ae0=ops_Ae[0],
+                             dtype=self.dtype or torch.float64,
+                             bases=aux if aux else None)
 
     def apply_state(self, state, v):
-        return self.mg.apply(state, v)
+        return _cycle_in(self.mg, state, v)

@@ -69,9 +69,20 @@ geometry.
 it.
 
 `element_type` is "CG2CG1" (the default), "CG2CR1" (triangles) or
-"CG1CG1", each on every solve route above (RMShellPDE). Not ported yet
-(ROADMAP.md, Queue 1), raising NotImplementedError before the device is
-looked at: dtypes other than f64. The model runs on the CUDA card unless
+"CG1CG1", each on every solve route above (RMShellPDE).
+
+The solve runs in f64. The JAX package's f32 solver configuration (its
+TPU default) is selected as the JAX package lets a user select it on the
+CPU, read at model construction: FEMO_MG_F32=1 gives the MG route the f32
+hierarchy (f32 coarse-level forms and bases, an f32 V-cycle on the
+kernels' f32 builds; models/rm_shell/mg.py), FEMO_OP_STORAGE=f32 rounds
+the fine operator's affine basis to f32 (combined by K2's f32 build,
+applied in f64 arithmetic as the JAX package applies it on the CPU). The
+band and AMG routes stay f64 here, as the JAX package's do off the TPU;
+their f32 configurations are BandCholPrecond(dtype=) and
+AMGPrecondFactory(dtype=). Not ported, raising NotImplementedError
+before the device is looked at: a `dtype` other than f64 for the model's
+own inputs and state, and FEMO_OP_STORAGE=df. The model runs on the CUDA card unless
 `device` names another; without a card and without `device` it raises
 (pass device="cpu" for the CPU).
 """
@@ -100,6 +111,21 @@ from ...solvers.eigen import dense_generalized_eigh, lobpcg
 from ...utils.logging import log
 from .mg import ShellMGPrecond, build_shell_mg, strong_bc_dofs
 from .pde import RMShellPDE
+
+
+def _op_storage():
+    """The fine operator basis's storage from FEMO_OP_STORAGE (read at
+    model construction): unset or "f64" native f64, "f32" an f32 basis.
+    The JAX package's float-float "df" is a TPU storage, not ported."""
+    sto = os.environ.get("FEMO_OP_STORAGE")
+    if sto in (None, "f64"):
+        return None
+    if sto == "df":
+        raise _not_ported("FEMO_OP_STORAGE=df (the TPU's float-float "
+                          "operator storage)")
+    if sto != "f32":
+        raise ValueError(f"FEMO_OP_STORAGE={sto!r} (f64, f32)")
+    return sto
 
 
 def _not_ported(what):
@@ -213,11 +239,15 @@ class RMShellModel:
             return {"method": "dense"}
         opts = {"method": "cg", "tol": 1e-11, "maxiter": 20 * int(n ** 0.5)}
         if not self.PENALTY_BC and getattr(self.mesh, "structured", False):
-            mg = build_shell_mg(pde, self.shell_bc_func, device=self.device,
-                                **self.mg_opts)
+            # FEMO_MG_F32=1: the f32 hierarchy (the JAX package's TPU
+            # default, which it lets a user select on the CPU this way)
+            sdt = (torch.float32 if os.environ.get("FEMO_MG_F32") == "1"
+                   else None)
+            mg = build_shell_mg(pde, self.shell_bc_func, dtype=sdt,
+                                device=self.device, **self.mg_opts)
             if mg is not None:
                 self.mg = mg
-                opts["precond_factory"] = ShellMGPrecond(mg)
+                opts["precond_factory"] = ShellMGPrecond(mg, dtype=sdt)
                 return opts
         free = None
         if bc_dofs is not None:
@@ -265,8 +295,11 @@ class RMShellModel:
         # the MID-plane isotropic shell stiffness is exactly h*M1 + h^3*M3
         # per cell with element-wise thickness: each linearization
         # re-assembles with one K2 combine; nodal thickness and a laminate
-        # are assembled directly
-        emf = (CachedAffineAssembler(residual_form)
+        # are assembled directly. FEMO_OP_STORAGE=f32 rounds that basis to
+        # f32 (an f32-accurate operator on the kernels' f32 builds; the JAX
+        # package records that this can stall its refinement)
+        emf = (CachedAffineAssembler(residual_form,
+                                     storage=_op_storage())
                if self.element_wise_material and self.composite_clt is None
                else None)
         fea.add_state("disp_solid", residual_form,

@@ -82,7 +82,7 @@ class RMShellPDE:
     def __init__(self, mesh, element_wise_material=False,
                  elementwise_pressure=False, element_type="CG2CG1",
                  inplane_deg=4, shear_deg=4, stress_deg=4, bot_plane=False,
-                 composite=None, device=None):
+                 composite=None, device=None, dtype=None):
         ct = mesh.cell_type
         if element_type == "CG2CG1":
             disp_deg, rot_fam, rot_deg = 2, "P", 1
@@ -97,7 +97,10 @@ class RMShellPDE:
         if composite is not None and composite.A.shape[0] != mesh.n_cells:
             raise ValueError(f"composite laminate has {composite.A.shape[0]} "
                              f"cells, the mesh {mesh.n_cells}")
+        if dtype not in (None, torch.float64, torch.float32):
+            raise TypeError(f"RMShellPDE: dtype {dtype} (float32/float64)")
         device = self.device = resolve_device(device)
+        self.dtype = dtype
         self.mesh = mesh
         self.bot_plane = bot_plane
         self.composite = composite
@@ -123,8 +126,15 @@ class RMShellPDE:
 
         # tables per rule (disp/rot/thickness/force bases tabulated at
         # shared points), made once here: the kernels run inside
-        # torch.func transforms, which must not create cached tensors
-        self._rules = {}
+        # torch.func transforms, which must not create cached tensors. With
+        # dtype=float32 the values are rounded to f32; the kernels read them
+        # in their inputs' dtype (`_rule`), the f32 forms (make_residual_form,
+        # elastic_energy_form) in f32, any other form in f64 on the same
+        # rounded values, as the JAX package's type promotion reads them
+        tdt = dtype or torch.float64
+        self._rules_by = {torch.float64: {}}
+        if tdt != torch.float64:
+            self._rules_by[tdt] = {}
         for name, deg in [("inplane", inplane_deg), ("shear", shear_deg),
                           ("stress", stress_deg)]:
             pts, w = quadrature_rule(ct, deg)
@@ -140,14 +150,25 @@ class RMShellPDE:
                         r_dphi=tab_r.dphi, t_phi=tab_t.phi,
                         t_dphi=tab_t.dphi, f_phi=tab_f.phi,
                         o_phi=tab_o.phi, w=np.asarray(w))
-            self._rules[name] = {
-                k: torch.as_tensor(v, dtype=torch.float64, device=device)
-                for k, v in tabs.items()}
+            for dt, rules in self._rules_by.items():
+                rules[name] = {
+                    k: torch.as_tensor(v, dtype=tdt, device=device).to(dt)
+                    for k, v in tabs.items()}
+        self._rules = self._rules_by[torch.float64]
         self.param_specs = {"thickness": self.VT, "E": self.VT,
                             "nu": self.VT, "uhat": self.VU,
                             "F_solid": self.VF}
 
     # ---------------------------------------------------------------- core
+    def _rule(self, name, dtype):
+        """The tables of one quadrature rule in `dtype` (f64, or the PDE's
+        own dtype)."""
+        rules = self._rules_by.get(dtype)
+        if rules is None:
+            raise TypeError(f"RMShellPDE(dtype={self.dtype}): no {dtype} "
+                            "tables (build the PDE with that dtype)")
+        return rules[name]
+
     def _split(self, u_cell):
         nd2, nd1 = self.nd_disp, self.nd_rot
         ud = u_cell[: nd2 * 3].reshape(nd2, 3)
@@ -156,7 +177,7 @@ class RMShellPDE:
 
     def _pointwise(self, rule, u_cell, x_cell, p, need_f=False):
         """Shared per-quadrature-point fields for one rule."""
-        R = self._rules[rule]
+        R = self._rule(rule, x_cell.dtype)
         ud, th = self._split(u_cell)
         uhat = p["uhat"].reshape(self.nv, 3)
         geo = surface_geometry(x_cell, R["geom_dphi"])
@@ -268,7 +289,7 @@ class RMShellPDE:
     def make_residual_form(self):
         return FemForm(self.W, self.make_elastic_energy_kernel(),
                        kind="energy", param_specs=dict(self.param_specs),
-                       cell_consts=self._cell_consts())
+                       cell_consts=self._cell_consts(), dtype=self.dtype)
 
     def inertia_form(self, rho_is_param=True, with_uhat=False):
         """Shell inertia as an energy, 0.5 rho h (|u|^2 + h_m^2 |theta|^2)
@@ -281,7 +302,7 @@ class RMShellPDE:
         nv = self.nv
 
         def kern(u_cell, x_cell, p):
-            R = self._rules["inplane"]
+            R = self._rule("inplane", x_cell.dtype)
             ud, th = self._split(u_cell)
             geo = surface_geometry(x_cell, R["geom_dphi"])
             u_q = R["d_phi"] @ ud
@@ -312,7 +333,7 @@ class RMShellPDE:
         the (negative) load vector."""
 
         def kern(u_cell, x_cell, p):
-            R = self._rules["inplane"]
+            R = self._rule("inplane", x_cell.dtype)
             ud, _ = self._split(u_cell)
             geo = surface_geometry(x_cell, R["geom_dphi"])
             u_q = R["d_phi"] @ ud
@@ -336,7 +357,7 @@ class RMShellPDE:
         alpha1 = 1e-2
 
         def kern(u_cell, x_cell, p):
-            R = self._rules["inplane"]
+            R = self._rule("inplane", x_cell.dtype)
             geo = surface_geometry(x_cell, R["geom_dphi"])
             wdA = R["w"] * geo["dA"]
             if kind == "L2":
@@ -356,7 +377,7 @@ class RMShellPDE:
         nv = self.nv
 
         def kern(u_cell, x_cell, p):
-            R = self._rules["inplane"]
+            R = self._rule("inplane", x_cell.dtype)
             ud, _ = self._split(u_cell)
             geo = surface_geometry(x_cell, R["geom_dphi"])
             dphi_g = phys_grad_table(R["geom_dphi"], geo["Pi"])
@@ -373,7 +394,7 @@ class RMShellPDE:
         """int rho h J(uhat) dx, with the thickness as primary argument."""
 
         def kern(h_cell, x_cell, p):
-            R = self._rules["inplane"]
+            R = self._rule("inplane", x_cell.dtype)
             geo = surface_geometry(x_cell, R["geom_dphi"])
             dphi_g = phys_grad_table(R["geom_dphi"], geo["Pi"])
             _, _, detF = deformation(p["uhat"].reshape(self.nv, 3), dphi_g)
@@ -388,7 +409,7 @@ class RMShellPDE:
         """int h J(uhat) dx, with the thickness as primary argument."""
 
         def kern(h_cell, x_cell, p):
-            R = self._rules["inplane"]
+            R = self._rule("inplane", x_cell.dtype)
             geo = surface_geometry(x_cell, R["geom_dphi"])
             dphi_g = phys_grad_table(R["geom_dphi"], geo["Pi"])
             _, _, detF = deformation(p["uhat"].reshape(self.nv, 3), dphi_g)
@@ -405,7 +426,7 @@ class RMShellPDE:
         return FemForm(self.W,
                        self.make_elastic_energy_kernel(with_load=False),
                        kind="energy", param_specs=specs,
-                       cell_consts=self._cell_consts())
+                       cell_consts=self._cell_consts(), dtype=self.dtype)
 
     # ------------------------------------------------------------ penalty BC
     def make_penalty_facet_form(self, bc_locs_func, quad_degree=4,
@@ -536,7 +557,7 @@ class RMShellPDE:
         def cell_fn(u_cell, x_cell, p):
             pt = self._pointwise("stress", u_cell, x_cell, p)
             vm = self._vm_stress_at_q(pt, 0.5 * pt["tq"])
-            phi_o = self._rules["stress"]["o_phi"]
+            phi_o = self._rule("stress", x_cell.dtype)["o_phi"]
             wdA = pt["w"] * pt["dA"]
             Mloc = torch.einsum("qa,qb,q->ab", phi_o, phi_o, wdA)
             b = torch.einsum("qa,q,q->a", phi_o, vm, wdA)

@@ -36,6 +36,11 @@ Design:
   of element-matrix entries behind a coarse entry).
 - The fine operator is the fused constrained operator
   (constrained_matvec_T) applied to f*x, which is exactly f A (f x).
+- `setup(..., dtype=torch.float32)` (AMGPrecondFactory(dtype=)) is the
+  reference's f32 configuration: the state is set up in f32 (the Schwarz
+  blocks, lmax over the f32 builds of K1 and the fused operator, the
+  coarse inverse) and each apply runs in the vector's dtype on that state
+  rounded to f32, upcast once per state.
 - Penalty BCs are handled by an F/P split: the dofs the penalty facet
   operator touches (from its assembled diagonal) are masked out of the AMG
   and get an exact diagonal solve instead (PenaltySplitAMG,
@@ -308,7 +313,7 @@ class AggregationAMG:
         return self._coarse_host
 
     def _coarse_tables(self, device, dtype):
-        key = ("coarse_tables", str(device))
+        key = ("coarse_tables", str(device), dtype)
         t = self._index_cache.get(key)
         if t is None:
             m, pos, valid_idx, target = self._coarse_plan_host()
@@ -348,7 +353,7 @@ class AggregationAMG:
         m, onehot, valid_idx, dm, plan = self._coarse_tables(Ae_T.device,
                                                              Ae_T.dtype)
         _, w_T, _ = self._tables(Ae_T.device)
-        fw = (free[None, :] * w_T).T  # (n, 6)
+        fw = (free[None, :] * w_T.to(Ae_T.dtype)).T  # (n, 6)
         C = Ae_T.new_empty((nc, m, m, 6, 6))
         for s in range(0, nc, self.chunk_cells):
             e = min(s + self.chunk_cells, nc)
@@ -367,12 +372,18 @@ class AggregationAMG:
         d = torch.diagonal(Ac)
         return Ac + torch.diag((d == 0.0).to(Ac.dtype))
 
-    def setup(self, Ae_T, free_mask=None):
+    def setup(self, Ae_T, free_mask=None, dtype=None):
         """Per-design state from lane-major element matrices (nd, nd, nc);
         free_mask overrides the constructor mask (e.g. with the penalty
-        dofs masked as well)."""
+        dofs masked as well). dtype: cast Ae_T first, so that the state is
+        set up in that precision (f32: the Schwarz blocks, lmax over the
+        f32 kernel builds, the coarse inverse); `apply` still runs in the
+        vector's dtype, on the state rounded to `dtype`."""
         with torch.no_grad():
-            Ae_T = Ae_T.detach().contiguous()
+            Ae_T = Ae_T.detach()
+            if dtype is not None:
+                Ae_T = Ae_T.to(dtype)
+            Ae_T = Ae_T.contiguous()
             dev, dtype = Ae_T.device, Ae_T.dtype
             free = (self._tables(dev)[2] if free_mask is None
                     else free_mask).to(dtype).contiguous()
@@ -395,8 +406,30 @@ class AggregationAMG:
         return apply_schwarz_T(self.space, sm[0], sm[1], v)
 
     # -------------------------------------------------------------- apply
+    def _state_in(self, state, dtype):
+        """The state's arrays in `dtype` (the vector's): the state itself,
+        or its upcast made once per state and kept in it, as the JAX
+        package's apply casts the f32 state to the vector's dtype."""
+        if state["Ae"].dtype == dtype:
+            return state
+        cast = state.setdefault("_as", {})
+        if dtype not in cast:
+            with torch.no_grad():
+                free = state["free"].to(dtype)
+                cast[dtype] = {
+                    "free": free,
+                    "matvec": _masked_matvec(state["Ae"].to(dtype),
+                                             self.space, free),
+                    "sm": tuple(a.to(dtype) for a in state["sm"]),
+                    "lmax": state["lmax"].to(dtype),
+                    "coarse_inv": state["coarse_inv"].to(dtype),
+                    "coarse_scale": state["coarse_scale"].to(dtype)}
+        return cast[dtype]
+
     def apply(self, state, b):
-        """One 2-level cycle from zero guess: the M^{-1} of PCG."""
+        """One 2-level cycle from zero guess: the M^{-1} of PCG, in b's
+        dtype."""
+        state = self._state_in(state, b.dtype)
         free = state["free"]
         b = free * b
         mv, sm, lmax = state["matvec"], state["sm"], state["lmax"]
@@ -448,10 +481,11 @@ def penalty_split(facet_ops, n_dofs, rel_tol=1e-10):
     return pen_mask, pen_diag
 
 
-def _split_state(amg, cell_Ae_T, facet_ops, free):
-    """The penalty split's state: the AMG on free AND not penalized, the
-    inverse diagonal (elastic + penalty, so penalty rows see their full row
-    scale) on the penalized free dofs, the identity on constrained ones."""
+def _split_state(amg, cell_Ae_T, facet_ops, free, dtype=None):
+    """The penalty split's state: the AMG on free AND not penalized (set up
+    in `dtype`), the inverse diagonal (elastic + penalty, so penalty rows
+    see their full row scale) on the penalized free dofs, the identity on
+    constrained ones."""
     with torch.no_grad():
         n = amg.space.n_dofs
         kw = dict(dtype=cell_Ae_T.dtype, device=cell_Ae_T.device)
@@ -461,7 +495,8 @@ def _split_state(amg, cell_Ae_T, facet_ops, free):
             pen_mask = torch.zeros(n, **kw)
             pen_diag = torch.zeros(n, **kw)
         free = torch.as_tensor(free, **kw)
-        st = amg.setup(cell_Ae_T, free_mask=free * (1.0 - pen_mask))
+        st = amg.setup(cell_Ae_T, free_mask=free * (1.0 - pen_mask),
+                       dtype=dtype)
         diag = amg.space.scatter_add(
             torch.diagonal(cell_Ae_T, dim1=0, dim2=1))
         diag_full = (diag + pen_diag) * free + (1.0 - free)
@@ -505,12 +540,16 @@ class AMGPrecondFactory:
     solvers.band.BandPrecond): the two-level aggregation AMG on the elastic
     block + the exact diagonal on the penalty block. Selected by
     RMShellModel where the band Cholesky passes its memory guard. The
-    forward solve's state is reused by the adjoint solve."""
+    forward solve's state is reused by the adjoint solve. dtype: the AMG's
+    setup precision (None: the operator's; torch.float32: the JAX
+    package's TPU configuration, applied in the vector's dtype); the
+    model's AMG route stays f64, as the JAX package's does off the TPU."""
 
     def __init__(self, space, form, facet_forms=(), free_mask=None,
-                 **amg_kw):
+                 dtype=None, **amg_kw):
         self.amg = AggregationAMG(form.space, free_mask=free_mask, **amg_kw)
         n = form.space.n_dofs
+        self.dtype = dtype
         self.free_mask = (np.ones(n) if free_mask is None
                           else np.asarray(free_mask, dtype=np.float64))
         # the op layout of ImplicitPDE._assemble_ops: the cell block, then
@@ -524,7 +563,7 @@ class AMGPrecondFactory:
     def setup_state(self, u, params, ops_Ae, aux):
         return _split_state(self.amg, ops_Ae[0],
                             list(zip(ops_Ae[1:], self._specs[1:])),
-                            self.free_mask)
+                            self.free_mask, dtype=self.dtype)
 
     def apply_state(self, state, v):
         return _split_apply(self.amg, state, v)

@@ -1,7 +1,7 @@
 """Blocked band Cholesky: the direct solver of unstructured shell meshes and
 penalty BCs (the role MUMPS plays in the reference FEMO).
 
-Port of femo_alpha_tpu/solvers/band.py, in f64 on the card:
+Port of femo_alpha_tpu/solvers/band.py, in f64 on the card by default:
 
 - Shell meshes are 2D manifolds: after reverse Cuthill-McKee the stiffness
   matrix has half bandwidth b = O(sqrt(N)), so block-band storage
@@ -13,8 +13,8 @@ Port of femo_alpha_tpu/solvers/band.py, in f64 on the card:
   in all. Only the lower triangle of the window is ever read, so the band's
   lower storage is used as it is. The window shifts between two buffers
   made once; the diagonal factors go through `cholesky_ex` with no host
-  check, and their `info` is checked once, after the loop: a factor that
-  fails raises, it is never shifted or retried.
+  check, and their `info` is checked once, after the loop: an f64 factor
+  that fails raises, it is never shifted or retried.
 - The system is equilibrated to unit diagonal first (this absorbs the
   beta = 1e15 penalty scale), so the f64 factor is a direct solve and the
   CG around it converges in one or two iterations.
@@ -24,10 +24,16 @@ Port of femo_alpha_tpu/solvers/band.py, in f64 on the card:
   assemblies, and two factors, of the same system are bit-identical. A
   `segment_sum`/`index_add_` here would add with atomics on the card.
 
-The reference's f32 factor and its diagonal-shift guard exist for the TPU
-and are not ported (ROADMAP.md). The factor and solves are plain PyTorch
-(`cholesky_ex`, `solve_triangular`, `addmm`); the reference ran them as
-plain XLA too.
+`BandCholPrecond(dtype=torch.float32, shift=1e-5)` is the reference's f32
+configuration (its TPU default, selectable on the CPU): the band is
+assembled and equilibrated in f64, then factored and solved in f32, and
+the solve's vectors are cast to f32 and back. Its breakdown guard: where
+the f32 factor fails (`cholesky_ex` reports it in `info`, where XLA gives
+NaNs) or is not finite, it refactors once with `shift` added to the
+equilibrated diagonal; if that factor fails too, it raises (the reference
+carries the NaNs on). The state records whether the shift was taken. The
+default stays f64. The factor and solves are plain PyTorch (`cholesky_ex`,
+`solve_triangular`, `addmm`); the reference ran them as plain XLA too.
 """
 
 from __future__ import annotations
@@ -180,6 +186,20 @@ def band_cholesky(R, w, m):
     panels below them): A = L L^T with L[tw:(t+1)w, tw:(t+1)w] = Ld[t] and
     L[(t+1)w:(t+1+m)w, tw:(t+1)w] = Lc[t]. Raises if a diagonal block is
     not positive definite."""
+    Ld, Lc, info = band_cholesky_ex(R, w, m)
+    bad = torch.nonzero(info).flatten()
+    if bad.numel():
+        t = int(bad[0])
+        raise RuntimeError(
+            f"band_cholesky: block {t} of {Ld.shape[0]} is not positive "
+            f"definite (info {int(info[t])}): the assembled system is not "
+            "SPD")
+    return Ld, Lc
+
+
+def band_cholesky_ex(R, w, m):
+    """band_cholesky without the check: (Ld, Lc, info), info (nb,) the
+    `cholesky_ex` info of each diagonal block (0 where it succeeded)."""
     nb, _, K = R.shape
     mw = m * w
     kw = dict(dtype=R.dtype, device=R.device)
@@ -204,13 +224,7 @@ def band_cholesky(R, w, m):
                     out=nxt[:mw, :mw])
         nxt[mw:] = R[t + m + 1] if t + m + 1 < nb else past_end
         win, nxt = nxt, win
-    bad = torch.nonzero(info).flatten()
-    if bad.numel():
-        t = int(bad[0])
-        raise RuntimeError(
-            f"band_cholesky: block {t} of {nb} is not positive definite "
-            f"(info {int(info[t])}): the assembled system is not SPD")
-    return Ld, Lc
+    return Ld, Lc, info
 
 
 def band_solve(Ld, Lc, b):
@@ -249,10 +263,18 @@ class BandCholPrecond:
     `apply` solves.
 
     dofmaps: the dofmap of each element block, in the order `setup` gets
-    their lane-major matrices; free: optional strong-BC 0/1 mask over the
-    original dof order (numpy or tensor)."""
+    their lane-major matrices; dtype: the factor's precision (None or
+    torch.float64: f64; torch.float32: the f32 factor with its shift
+    guard, see the module docstring); shift: that guard's diagonal shift;
+    free: optional strong-BC 0/1 mask over the original dof order (numpy
+    or tensor)."""
 
-    def __init__(self, space, dofmaps, free=None):
+    def __init__(self, space, dofmaps, dtype=None, shift=1e-5, free=None):
+        if dtype not in (None, torch.float64, torch.float32):
+            raise TypeError(f"BandCholPrecond: dtype {dtype} "
+                            "(float32/float64)")
+        self.dtype = dtype or torch.float64
+        self.shift = shift
         self.n = space.n_dofs
         self.perm, self.iperm = nodal_dof_permutation(space)
         self.b = permuted_bandwidth(self.iperm, dofmaps)
@@ -301,23 +323,62 @@ class BandCholPrecond:
         return assemble_block_band(ops, slots, inv, fill, self.nb, self.w,
                                    self.K)
 
+    def permute_ops(self, ops):
+        """[(Ae, spec)] element blocks -> [(Ae, the spec's dofmap in the
+        permuted (RCM) dof order)]."""
+        iperm = np.asarray(self.iperm, dtype=np.int64)
+        return [(Ae, iperm[np.asarray(getattr(sp, "dofmap", sp))])
+                for Ae, sp in ops]
+
     def factor(self, R):
-        """Equilibrate R in place and factor it: the state `apply` uses."""
-        s = equilibrate(R, self.w, self.m)
-        Ld, Lc = band_cholesky(R, self.w, self.m)
-        return {"Ld": Ld, "Lc": Lc, "s": s}
+        """Equilibrate R (f64) in place and factor it in `dtype`
+        (band_factor): the state `apply` uses."""
+        return band_factor(R, self.w, self.m, self.dtype, self.shift)
 
     def setup(self, ops):
         return self.factor(self.assemble(ops))
 
     def apply(self, state, v):
-        """x = A^{-1} v through the equilibrated factor: S (LL^T)^{-1} S v."""
+        """x = A^{-1} v through the equilibrated factor: S (LL^T)^{-1} S v,
+        the triangular solves in the factor's dtype."""
         perm, iperm = self.tables(v.device)[:2]
-        s = state["s"]
+        s = state["s"].to(v.dtype)
         vp = v.new_zeros(self.n_pad)
         vp[:self.n] = v[perm]
-        x = band_solve(state["Ld"], state["Lc"], vp * s) * s
-        return x[:self.n][iperm]
+        Ld = state["Ld"]
+        x = band_solve(Ld, state["Lc"], (vp * s).to(Ld.dtype))
+        return (x.to(v.dtype) * s)[:self.n][iperm]
+
+
+def band_factor(R, w, m, dtype=torch.float64, shift=1e-5):
+    """Equilibrate the f64 block-band storage R in place and factor it in
+    `dtype`: {"Ld", "Lc", "s", "shifted"}. An f64 factor that fails raises
+    (band_cholesky). An f32 factor that fails or is not finite is taken
+    again once with `shift` added to the equilibrated diagonal
+    ("shifted": True); if that one fails too, it raises."""
+    s = equilibrate(R, w, m)
+    if dtype == torch.float64:
+        Ld, Lc = band_cholesky(R, w, m)
+        return {"Ld": Ld, "Lc": Lc, "s": s, "shifted": False}
+    Rs = R.to(dtype)
+    Ld, Lc, info = band_cholesky_ex(Rs, w, m)
+    shifted = _failed(Ld, Lc, info)
+    if shifted:
+        r = torch.arange(w, device=Rs.device)
+        Rs[:, r, m * w + r] += shift
+        Ld, Lc, info = band_cholesky_ex(Rs, w, m)
+        if _failed(Ld, Lc, info):
+            raise RuntimeError(
+                f"band_cholesky: the {dtype} factor failed, and again with "
+                f"the diagonal shifted by {shift}")
+    return {"Ld": Ld, "Lc": Lc, "s": s, "shifted": shifted}
+
+
+def _failed(Ld, Lc, info):
+    """Whether a factor failed: a block's info, or a non-finite entry (one
+    host read)."""
+    return bool(torch.any(info != 0)
+                | ~torch.isfinite(Ld.sum() + Lc.sum()))
 
 
 class BandPrecond:
@@ -326,8 +387,10 @@ class BandPrecond:
     adjoint solve reuses that factor, as the reference reuses its MUMPS
     factorization for the forward and the adjoint."""
 
-    def __init__(self, space, dofmaps, free_mask=None):
-        self.band = BandCholPrecond(space, dofmaps, free=free_mask)
+    def __init__(self, space, dofmaps, free_mask=None, dtype=None,
+                 shift=1e-5):
+        self.band = BandCholPrecond(space, dofmaps, dtype=dtype, shift=shift,
+                                    free=free_mask)
 
     def prepare(self, params, grad_keys=frozenset()):
         return ()
@@ -339,9 +402,11 @@ class BandPrecond:
         return self.band.apply(state, v)
 
 
-def band_precond_factory(space, form, facet_forms=(), free_mask=None):
+def band_precond_factory(space, form, facet_forms=(), free_mask=None,
+                         dtype=None, shift=1e-5):
     """A BandPrecond for a cell form and its facet forms, in the op layout
     of ImplicitPDE._assemble_ops: the cell block first, then one block per
-    facet form."""
+    facet form. dtype / shift: see BandCholPrecond."""
     dofmaps = [form.space.dofmap] + [ff.block.dofmap for ff in facet_forms]
-    return BandPrecond(space, dofmaps, free_mask=free_mask)
+    return BandPrecond(space, dofmaps, free_mask=free_mask, dtype=dtype,
+                       shift=shift)

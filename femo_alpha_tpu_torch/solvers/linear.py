@@ -54,7 +54,13 @@ def dense_from_blocks(ops, n_dofs):
 
 def _sum_of_blocks(ops, free_mask):
     """The constrained operator of a list of lane-major blocks: one fused
-    operator per block; every block adds (1-f)*x, the sum keeps it once."""
+    operator per block; every block adds (1-f)*x, the sum keeps it once.
+    A block stored in f32 under f64 vectors (the fine operator under
+    storage="f32") runs the fused operator's f32-matrix, f64-vector build:
+    its f32 entries applied in f64 arithmetic, as the JAX package's
+    make_matvec applies them on the CPU (its f32-arithmetic product, the
+    JAX package's lane-major TPU path, does not converge on the shell;
+    PERF.md)."""
     mvs = [make_constrained_matvec_T(Ae, sp, free_mask) for Ae, sp in ops]
     if len(mvs) == 1:
         return mvs[0]
@@ -123,7 +129,8 @@ class LinearSolver:
         self._matvecT = None
         self.M = None
         if method == "dense":
-            A = dense_from_blocks(ops, n_dofs)
+            A = dense_from_blocks([(Ae.to(self.free_mask.dtype), sp)
+                                   for Ae, sp in ops], n_dofs)
             if extra_matvec is not None:
                 A = A + jacfwd(extra_matvec)(A.new_zeros(n_dofs))
             self._dense = DenseSolver(apply_bc_dense(A, self.free_mask),

@@ -492,6 +492,18 @@ def dense_constrained(Ae, W, free):
 # --------------------------------------------------------------------------
 
 
+def _free_in(lev, dtype):
+    """A level's free-dof mask in `dtype`, cast once and kept on the
+    level (the mask itself when it has that dtype)."""
+    free = lev["free"]
+    if free.dtype == dtype:
+        return free
+    cast = lev.setdefault("_free_as", {})
+    if dtype not in cast:
+        cast[dtype] = free.to(dtype)
+    return cast[dtype]
+
+
 class GeometricMG:
     """V- or W-cycle preconditioner over a list of levels (fine -> coarse).
 
@@ -545,21 +557,33 @@ class GeometricMG:
                           for k in range(len(levels) - 1)]
 
     # ----------------------------------------------------------- setup
-    def setup(self, params, Ae0=None, bases=None):
+    def setup(self, params, Ae0=None, dtype=None, bases=None):
         """Returns the state dict: per-level Ae, constrained operators
-        (made once here, applied by every cycle), smoother blocks and lmax,
-        and the coarse (scaled) dense inverse.
+        (made once here, applied by every cycle), free masks, smoother
+        blocks and lmax, and the coarse (scaled) dense inverse.
 
         Ae0: the fine level's element matrices when the caller already has
-        them (level 0's make_Ae is then not called). bases: per-level
-        affine bases, injected as p["_affine_basis"] for each make_Ae."""
-        state = {"Ae": [], "matvec": [], "blocks": [], "lmax": []}
+        them (level 0's make_Ae is then not called). dtype: cast the
+        floating parameters and Ae0 to it first, so that the whole state is
+        built in that precision (f32: the levels' forms and bases are f32
+        too, models/rm_shell/mg.py) — lmax in it, the coarse inverse in
+        it, every smoother and residual pass on the f32 kernel builds.
+        bases: per-level affine bases, injected as p["_affine_basis"] for
+        each make_Ae."""
+        if dtype is not None:
+            params = {k: (v.to(dtype) if torch.is_tensor(v)
+                          and v.is_floating_point() else v)
+                      for k, v in params.items()}
+            Ae0 = None if Ae0 is None else Ae0.to(dtype).contiguous()
+        state = {"Ae": [], "matvec": [], "free": [], "blocks": [],
+                 "lmax": []}
         p = params
         for k, lev in enumerate(self.levels):
             pk = p if bases is None else {**p, "_affine_basis": bases[k]}
             Ae = Ae0 if (k == 0 and Ae0 is not None) else lev["make_Ae"](pk)
             state["Ae"].append(Ae)
-            free_k = lev["free"]
+            free_k = _free_in(lev, Ae.dtype)
+            state["free"].append(free_k)
             W = lev["space"]
             if k < len(self.levels) - 1:
                 sm = self._smoother_arrays(Ae, W, free_k)
@@ -604,12 +628,11 @@ class GeometricMG:
         return self._cycle(state, 0, b)
 
     def _cycle(self, state, k, b):
-        lev = self.levels[k]
-        free = lev["free"]
+        free = state["free"][k]
         if k == len(self.levels) - 1:
             s = state["coarse_scale"]
             return s * (state["coarse_inv"] @ (s * b))
-        W = lev["space"]
+        W = self.levels[k]["space"]
         mv = state["matvec"][k]
         sm = state["blocks"][k]
         lmax = state["lmax"][k]
@@ -621,7 +644,7 @@ class GeometricMG:
         x = chebyshev_smooth(mv, Minv, lmax, b, torch.zeros_like(b),
                              degree=deg, lmin_ratio=self.lmin_ratio)
         t = self.transfers[k]
-        free_c = self.levels[k + 1]["free"]
+        free_c = state["free"][k + 1]
         r_c = t.restrict(b - mv(x)) * free_c
         e_c = self._cycle(state, k + 1, r_c)
         if self.cycle == "W" and k + 1 < len(self.levels) - 1:

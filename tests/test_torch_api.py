@@ -249,7 +249,8 @@ def test_shell_mg_precond_factory_matches_reference(api_digits):
     shell_mg_precond_factory(build_shell_mg(..., coarsest_cells=64)): the
     state within the reference test's 1e-9 (max abs; the tip deflection is
     ~1e-2) of the dense solve and of the JAX package's, and the CG
-    iterations equal to the JAX run's (tools/api_reference_digits.py). The
+    iterations equal to the JAX run's (tools/api_reference_digits.py);
+    with the f32 hierarchy (dtype=float32) the same state. The
     state's ImplicitPDE is rebuilt after the options change
     (FEA._build_pde): the assignment alone, as the reference test makes
     it, leaves the dense solve built at construction in place, in both
@@ -278,8 +279,18 @@ def test_shell_mg_precond_factory_matches_reference(api_digits):
         < 1e-9
     assert [pde.last_info["forward"]["iters"]] == \
         api_digits["mg_factory_iters"].tolist()
-    with pytest.raises(NotImplementedError, match="f64"):
-        shell_mg_precond_factory(mg, dtype=torch.float32)
+    # the f32 hierarchy, which this factory refused before the f32
+    # configuration was ported: the same solve preconditioned by its f32
+    # V-cycle lands on the dense solve's state at the same bar
+    mg32 = build_shell_mg(model.shell_pde, _bc, coarsest_cells=64,
+                          dtype=torch.float32, device="cpu")
+    model.fea.states["disp_solid"].solver_opts = {
+        "method": "cg", "tol": 1e-11,
+        "precond_factory": shell_mg_precond_factory(mg32,
+                                                    dtype=torch.float32)}
+    model.fea._build_pde("disp_solid")
+    u32 = model.evaluate(*args).disp_solid
+    assert float((u32 - u_dense).abs().max()) < 1e-9
 
 
 def test_force_reshaping_model_matches_reference():

@@ -146,6 +146,24 @@ def test_fused_operator_matches_twin(cuda, dtype, bar, nx, ny):
     assert _rel(y, plain(x)) <= bar
 
 
+@pytest.mark.parametrize("nx,ny", [(128, 32), (64, 16), (5, 3)])
+def test_fused_operator_f32_matrices_f64_vectors(cuda, nx, ny):
+    """The fused operator's f32-matrix, f64-vector build (the operator
+    under storage="f32"): f64 out, and bit for bit the f64 build on the
+    matrices upcast (odd nc takes the unvectorized cell pass)."""
+    op64, _, x = _shell_operator(cuda, nx, ny, torch.float64)
+    pde = RMShellPDE(_rect(nx, ny), element_wise_material=True,
+                     device="cuda")
+    free, _ = combine_bcs(pde.W.n_dofs,
+                          [DirichletBC(strong_bc_dofs(pde, _clamped))],
+                          dtype=torch.float64, device="cuda")
+    A32 = torch.randn((pde.W.nd_local, pde.W.nd_local, nx * ny),
+                      generator=cuda, device="cuda").float()
+    y = make_constrained_matvec_T(A32, pde.W, free)(x)
+    y64 = make_constrained_matvec_T(A32.double(), pde.W, free)(x)
+    assert y.dtype == torch.float64 and torch.equal(y, y64)
+
+
 def test_fused_operator_is_bitwise_repeatable(cuda):
     op, _, x = _shell_operator(cuda, 128, 32, torch.float64)
     assert torch.equal(op(x), op(x))

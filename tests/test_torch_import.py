@@ -193,6 +193,58 @@ def test_unported_configurations_raise(what, monkeypatch):
         return
 
 
+# the JAX package's public names that the port replaces instead of porting
+# them (ROADMAP.md, "Replace, do not port")
+REPLACED_NAMES = {"solvers": {"cg_solve_hostloop"}, "assembly": set()}
+
+
+def _reference_all(package):
+    """The `__all__` of femo_alpha_tpu.<package>, read from its source
+    (no JAX import)."""
+    import ast
+
+    path = os.path.join(REPO, "femo_alpha_tpu", package, "__init__.py")
+    tree = ast.parse(open(path).read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    raise AssertionError(f"no __all__ in {path}")
+
+
+@pytest.mark.parametrize("package", ["assembly", "solvers"])
+def test_public_names_cover_the_reference(package):
+    """The port's assembly and solvers export every public name of the JAX
+    package's (make_matvec, scatter_add, BandCholPrecond,
+    band_precond_factory, make_space_transfer among them), less the ones
+    it replaces."""
+    mod = importlib.import_module("femo_alpha_tpu_torch." + package)
+    missing = _reference_all(package) - REPLACED_NAMES[package] - set(
+        mod.__all__)
+    assert not missing, missing
+    assert all(hasattr(mod, name) for name in mod.__all__)
+
+
+def test_df_operator_storage_raises(monkeypatch):
+    """FEMO_OP_STORAGE=df, the TPU's float-float operator storage, is not
+    ported: the model raises NotImplementedError at construction; f32 and
+    f64 are taken."""
+    from femo_alpha_tpu_torch.mesh import createRectangleMesh
+    from femo_alpha_tpu_torch.models import RMShellModel
+
+    mesh = createRectangleMesh(8, 2, (0, 0), (10.0, 2.0), "quad", gdim=3)
+    kw = dict(shell_bc_func=lambda x: x[:, 0] < 1e-12,
+              element_wise_material=True, device="cpu")
+    monkeypatch.setenv("FEMO_OP_STORAGE", "df")
+    with pytest.raises(NotImplementedError, match="df"):
+        RMShellModel(mesh, **kw)
+    for sto, want in (("f32", "f32"), ("f64", None)):
+        monkeypatch.setenv("FEMO_OP_STORAGE", sto)
+        model = RMShellModel(mesh, **kw)
+        assert model.fea.states["disp_solid"].pde.element_matrices_fn \
+            .storage == want
+
+
 def test_platesim_without_a_card_raises(monkeypatch):
     """PlateSim takes the card when `device` is not given and raises where
     there is none (the test takes the card away itself), with element-wise
