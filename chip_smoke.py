@@ -160,6 +160,18 @@ quality gate, against a direct solve of the same assembled system on the
 card (band Cholesky + refinement) and, within that direct solve's own
 distance, against the committed host-f64 golden of the JAX package's
 system, with the fused operator and K2 at its fine level's shapes.
+Then the multi-device product path (`parallel` phase,
+femo_alpha_tpu_torch/parallel/): two ranks on cuda:0 over gloo (NCCL takes
+one card per rank), a file:// rendezvous in a temporary directory, the
+kernel library built here before they start; each rank splits the
+128x32 headline (LibraryBench, MG), the 8x36 penalty wing (WingBench,
+band) and PlateSim 40x20 on the step MG cut to PARALLEL_SIM_STEPS steps
+with shard_model, runs a first and warm evaluate + backward, and returns
+its results, its launches, its all_reduce count and seconds and its peak
+memory; the ranks must agree bit for bit, match this process's one-rank
+run of the same models (J 1e-9, u 1e-8, dJ/dh 1e-6, the reference's
+bars), launch the fused operator and K2 in every rank and case, and hold
+both kernels to their twins on their own cell range's tables and basis.
 Every path's kernel line gives each
 kernel's time beside its twin's, its bound and one PyTorch library call
 of the same function. Each path is driven with the launch counts set
@@ -3318,10 +3330,10 @@ def phase_nodal(ck):
     asm = [0.0, 0]
     em_i, em_a = implicit.element_matrices, affine.element_matrices
 
-    def timed_em(form, u_, params, chunk=16384, em=em_i):
+    def timed_em(form, u_, params, chunk=16384, em=em_i, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        Ae = em(form, u_, params, chunk=chunk)
+        Ae = em(form, u_, params, chunk=chunk, **kw)
         torch.cuda.synchronize()
         asm[0] += time.perf_counter() - t
         asm[1] += 1
@@ -3567,10 +3579,10 @@ def phase_composite(ck):
     asm = [0.0, 0]
     em_i, em_a = implicit.element_matrices, affine.element_matrices
 
-    def timed_em(form, u_, params, chunk=16384, em=em_i):
+    def timed_em(form, u_, params, chunk=16384, em=em_i, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        Ae = em(form, u_, params, chunk=chunk)
+        Ae = em(form, u_, params, chunk=chunk, **kw)
         torch.cuda.synchronize()
         asm[0] += time.perf_counter() - t
         asm[1] += 1
@@ -4388,6 +4400,218 @@ def phase_f32(ck, slice_f64):
     return path, path32, cases
 
 
+# the parallel phase: 2 ranks on one card over gloo; PlateSim 40x20 cut to
+# this many steps (each step solve's V-cycles reduce through the host)
+PARALLEL_RANKS = 2
+PARALLEL_SIM_STEPS = 2
+PARALLEL_KINDS = ("headline", "wing", "sim")
+# WingBench's wing for the parallel phase: 8x36 (8,823 dofs, band), the
+# size class of the reference's split wing test. On the 18x66 wing the
+# split run and the one-rank run part by 1.9e-9 in J (measured on one
+# H100): the penalty system's CG stops at its rounding floor there (a
+# tolerance of 1e-14 gives the same 3 iterations and bits on the CPU),
+# so two summation orders part at that floor (PERF.md)
+PARALLEL_WING = (8, 36)
+# the reference's bars of a split run against one device
+# (tests/test_product_sharding.py)
+PARALLEL_BARS = {"J": 1e-9, "u": 1e-8, "g": 1e-6}
+
+
+def _parallel_model(kind, dev):
+    """(the object to split, its thickness, design -> (J, u, dJ/dh)) of
+    one parallel case, built on `dev` through the port's entry points."""
+    import torch
+
+    from femo_alpha_tpu_torch.benchmarks import LibraryBench, WingBench
+
+    if kind == "headline":
+        b = LibraryBench(nx=128, ny=32, device=dev)
+
+        def run(th):
+            r = b.forward_adjoint(th)
+            return r["J"], r["u"], r["grad"]
+        return b.model, b.th0, run
+    if kind == "wing":
+        b = WingBench(*PARALLEL_WING, device=dev)
+
+        def run(th):
+            out, g = b.forward_adjoint(th)
+            return out.compliance.detach(), out.disp_solid.detach(), g
+        return b.model, b.th0, run
+    from femo_alpha_tpu_torch.mesh import createRectangleMesh
+    from femo_alpha_tpu_torch.models.dynamic_rm_shell import PlateSim
+
+    mesh = createRectangleMesh(40, 20, (0, 0), (10.0, 2.0), "quad", gdim=3)
+    sim = PlateSim(mesh, E=4.32e8, nu=0.0, rho=100.0, dt=0.01,
+                   Nsteps=PARALLEL_SIM_STEPS, element_wise_thickness=True,
+                   solver_method="mg", device=dev)
+    f_hist = torch.zeros((sim.time_levels, sim.W_f.n_dofs),
+                         dtype=torch.float64, device=dev)
+    f_hist[:, 2::3] = 10.0
+
+    def run(th):
+        th = th.detach().clone().requires_grad_(True)
+        wh = sim.simulate(th, f_hist)
+        J = torch.sum(sim.strain_energy_history(wh, th))
+        J.backward()
+        return J.detach(), wh[-1].detach(), th.grad
+    return sim, torch.full((sim.num_var,), 0.1, dtype=torch.float64,
+                           device=dev), run
+
+
+def _rank_twins(ck, kind, target, th0, spec):
+    """Both kernels against their twins on this rank's own cells: K2 on
+    its slice of the fine basis and of theta, the fused operator on its
+    cell range's lane tables (not counted as path launches)."""
+    import torch
+
+    if kind == "sim":
+        asm, W, free = target._K_asm, target.W, None
+    else:
+        pde = target.fea.states["disp_solid"].pde
+        asm, W, free = pde.element_matrices_fn, pde.form.space, pde.free_mask
+    view = spec.cells_of(W)
+    B = asm._aff.basis
+    c0, c1 = view.cells
+    theta = th0[c0:c1].contiguous()
+    k2_err, k2 = k2_case(ck, f"parallel_{kind}_rank{spec.rank}", B, theta,
+                         (1, 3))
+    Ae = ck.affine_combine(B, theta, (1, 3))
+    if free is None:
+        free = torch.ones(W.n_dofs, dtype=Ae.dtype, device=Ae.device)
+    x = torch.sin(torch.arange(W.n_dofs, dtype=Ae.dtype, device=Ae.device))
+    fused_err, fused = fused_case(ck, f"parallel_{kind}_rank{spec.rank}",
+                                  Ae, view, free, x)
+    return {"k2_err": k2_err, "k2": k2, "fused_err": fused_err,
+            "fused": fused}
+
+
+def parallel_rank(mesh, kinds):
+    """One rank of the parallel phase (run by parallel.ranks.RankPool):
+    each case built on cuda:(rank % device_count), split with
+    shard_model, a first and a warm evaluate + backward from zeroed launch
+    counts, then both kernels against their twins on the rank's tables."""
+    import torch
+
+    from femo_alpha_tpu_torch.assembly import cuda_kernels as ck
+    from femo_alpha_tpu_torch.parallel import shard_model
+
+    dev = torch.device("cuda", mesh.rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    out = {}
+    for kind in kinds:
+        target, th0, run = _parallel_model(kind, dev)
+        shard_model(target, mesh)
+        spec = target.shard_spec
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ck.reset_launch_counts()
+        spec.reset_stats()
+        t0 = time.perf_counter()
+        J, u, g = run(th0)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        first_ar = spec.stats()
+        t0 = time.perf_counter()
+        run(th0 * 1.01)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        launches = ck.launch_counts()
+        stats = spec.stats()
+        peak = torch.cuda.max_memory_allocated(dev)
+        out[kind] = {
+            "J": float(J), "u": u.cpu().numpy(), "g": g.cpu().numpy(),
+            "launches": launches, "first_s": first_s, "warm_s": warm_s,
+            "all_reduce": stats["all_reduce"] - first_ar["all_reduce"],
+            "all_reduce_s": stats["all_reduce_s"] - first_ar["all_reduce_s"],
+            "peak_gb": peak / 1e9, "cells": spec.cell_range(target.nel),
+            **_rank_twins(ck, kind, target, th0, spec)}
+        del target, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel(ck):
+    """The multi-device product path on one card: PARALLEL_RANKS ranks on
+    cuda:0 over gloo, each case split by shard_model, against this
+    process's one-rank run of the same models."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from femo_alpha_tpu_torch.parallel.ranks import Job, RankPool
+
+    t_phase = time.perf_counter()
+    ck.load_library()  # built here, before the ranks start
+    one = {}
+    for kind in PARALLEL_KINDS:
+        target, th0, run = _parallel_model(kind, torch.device("cuda", 0))
+        J, u, g = run(th0)
+        one[kind] = (float(J), u.cpu().numpy(), g.cpu().numpy())
+        del target, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        pool = RankPool(PARALLEL_RANKS, d, threads=4, timeout=600)
+        spawn_s = time.perf_counter() - t0
+        try:
+            res = pool.run({r: Job("chip_smoke", "parallel_rank",
+                                   (PARALLEL_KINDS,))
+                            for r in range(PARALLEL_RANKS)})
+        finally:
+            pool.close()
+    ranks = [res[r] for r in range(PARALLEL_RANKS)]
+    total = {k: 0 for k in ck.launch_counts()}
+    for kind in PARALLEL_KINDS:
+        rs = [r[kind] for r in ranks]
+        J1, u1, g1 = one[kind]
+        same = all(rs[0]["J"] == r["J"] and np.array_equal(rs[0]["u"], r["u"])
+                   and np.array_equal(rs[0]["g"], r["g"]) for r in rs[1:])
+        errs = {"J": abs(rs[0]["J"] - J1) / abs(J1),
+                "u": np.linalg.norm(rs[0]["u"] - u1) / np.linalg.norm(u1),
+                "g": np.linalg.norm(rs[0]["g"] - g1) / np.linalg.norm(g1)}
+        for i, r in enumerate(rs):
+            say("parallel", case=kind, rank=i, cells=r["cells"],
+                first_s=f"{r['first_s']:.3f}", warm_s=f"{r['warm_s']:.3f}",
+                all_reduce_per_call=r["all_reduce"],
+                all_reduce_ms=f"{1e3 * r['all_reduce_s'] / max(1, r['all_reduce']):.4f}",
+                peak_gb=f"{r['peak_gb']:.3f}",
+                launches=json.dumps(r["launches"]),
+                k2_twin_err=f"{r['k2_err']:.2e}",
+                fused_twin_err=f"{r['fused_err']:.2e}", k2=r["k2"],
+                fused=r["fused"])
+        say("parallel", case=kind, ranks=len(rs), bitwise_ranks=same,
+            J=f"{rs[0]['J']:.12e}", J_one_rank=f"{J1:.12e}",
+            **{f"{k}_err_vs_one_rank": f"{v:.3e}" for k, v in errs.items()})
+        if not same:
+            fail(f"parallel {kind}: the ranks' results differ")
+        for k, bar in PARALLEL_BARS.items():
+            if not errs[k] < bar:
+                fail(f"parallel {kind}: {k} {errs[k]:.3e} from the one-rank "
+                     f"run (bar {bar:.0e})")
+        for i, r in enumerate(rs):
+            if min(r["launches"]["constrained_matvec_T"],
+                   r["launches"]["affine_combine"]) <= 0:
+                fail(f"parallel {kind}: rank {i} did not launch both "
+                     f"kernels: {r['launches']}")
+            if max(r["k2_err"], r["fused_err"]) > 1e-12:
+                fail(f"parallel {kind}: rank {i}'s kernels against their "
+                     f"twins on its tables: K2 {r['k2_err']:.2e}, fused "
+                     f"{r['fused_err']:.2e}")
+            for k in total:
+                total[k] += r["launches"][k]
+        if not all(np.isfinite(r["u"]).all() and np.isfinite(r["g"]).all()
+                   for r in rs):
+            fail(f"parallel {kind}: non-finite results")
+    say("parallel", ranks=PARALLEL_RANKS, backend="gloo",
+        spawn_s=f"{spawn_s:.2f}", launches=json.dumps(total),
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    return total
+
+
 def main():
     if len(sys.argv) > 1:
         fail(f"takes no arguments, got {sys.argv[1:]}")
@@ -4443,6 +4667,7 @@ def main():
     elasticity_case, = run("elasticity", phase_elasticity)
     run("beam", phase_beam)
     c172_cases, = run("examples", phase_examples)
+    run("parallel", phase_parallel)
     scale_cases, = run("scale", phase_scale)
     at_scale = [_case_numbers(c) for c in scale_cases]
     launches = {k: sum(p[k] for p in by_path.values())

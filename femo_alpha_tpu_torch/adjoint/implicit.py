@@ -41,6 +41,15 @@ differentiated: the element-matrix function and the preconditioner then
 assemble directly, once per solve. A plain factory
 `precond_factory(u, params) -> M` (no `setup_state`) is called at each
 linearization instead, as the JAX package's `make_solver` does.
+
+Under parallel/product.py::shard_model (`shard_spec`), the three hooks of
+the JAX package split the cell-indexed pieces over the ranks:
+`_prepare_aux` (the bases, built on the rank's cells), `_assemble_ops`
+(the cell block on the rank's cells, facet blocks replicated) and
+`_linearize` (the preconditioner's split state). The residual of the
+Newton loop and the parameter vjp of the adjoint are split the same way:
+each rank assembles its own cells (the facet and extra terms on rank 0)
+and one all_reduce sums them.
 """
 
 from __future__ import annotations
@@ -86,6 +95,8 @@ class ImplicitPDE:
         self._pc = pf if split else None
         self._pf = None if split else pf
         self.last_info = {}
+        # parallel/product.py::shard_model: the cell split (None: whole)
+        self.shard_spec = None
 
     # -------------------------------------------------- raw pieces
     def residual(self, u, params):
@@ -97,6 +108,31 @@ class ImplicitPDE:
             r = r + self.extra_residual(u, params)
         return constrain_residual(r, u, self.free_mask, self.bc_vals)
 
+    def _rank_residual(self, u, params):
+        """Under shard_spec: the cell form's residual over this rank's
+        cells (not summed over the ranks), plus, on rank 0 only, the facet
+        and extra terms: summed over the ranks, the unconstrained
+        residual."""
+        view = self._op_specs[0]
+        rc = self.form.cell_values(self.form.kernel, u, params, chunk=16384,
+                                   cells=view.cells)
+        r = view.partial_scatter_add(rc)
+        if self.shard_spec.rank == 0:
+            for ff in self.facet_forms:
+                r = r + ff.assemble_residual(u, params)
+            if self.extra_residual is not None:
+                r = r + self.extra_residual(u, params)
+        return r
+
+    def _solve_residual(self, u, params):
+        """The constrained residual the Newton loop solves with (no
+        autograd): `residual`, or under shard_spec each rank's cells and
+        one all_reduce."""
+        if self.shard_spec is None:
+            return self.residual(u, params)
+        r = self.shard_spec.all_reduce(self._rank_residual(u, params))
+        return constrain_residual(r, u, self.free_mask, self.bc_vals)
+
     def _assemble_ops(self, u, params, emf_basis=None, facet_ops=None,
                       direct=False):
         """The element blocks in the `_op_specs` layout, lane-major
@@ -105,17 +141,27 @@ class ImplicitPDE:
         basis is given (what `_prepare_aux` asks for when a geometry
         parameter requires grad), instead of preparing one here."""
         fn = self.element_matrices_fn
+        spec = self.shard_spec
         if fn is not None and direct and emf_basis is None \
                 and hasattr(fn, "direct"):
             ops = [fn.direct(u, params)]
         elif fn is not None:
             ops = [fn(u, params, basis=emf_basis)]
         else:
-            Ae = element_matrices(self.form, u, params)
+            cells = (None if spec is None
+                     else spec.cells_of(self.form.space).cells)
+            Ae = element_matrices(self.form, u, params, cells=cells)
             ops = [Ae.permute(1, 2, 0).contiguous()]
         if facet_ops is None:
             facet_ops = [ff.element_ops(u, params) for ff in self.facet_forms]
-        return ops + list(facet_ops)
+        ops = ops + list(facet_ops)
+        if spec is not None:
+            # parallel/product.py: the cell block on this rank's cells,
+            # the facet blocks replicated
+            from ..parallel.product import shard_ops
+
+            ops = shard_ops(self, ops)
+        return ops
 
     def _extra_linearization(self, u, params):
         """v -> d extra_residual(u, params)[v] (torch.func.jvp at u), or
@@ -181,7 +227,14 @@ class ImplicitPDE:
                else None)
         pca = (self._pc.prepare(params, grad_keys) if self._pc is not None
                else ())
-        return emb, pca, self._prepare_facet_ops(params)
+        aux = emb, pca, self._prepare_facet_ops(params)
+        if self.shard_spec is not None:
+            # parallel/product.py: every cell-indexed basis on this rank's
+            # cells (built there by the split assemblers)
+            from ..parallel.product import shard_aux
+
+            aux = shard_aux(self, aux)
+        return aux
 
     def _linearize(self, u, params, aux):
         """The operator blocks and preconditioner state at u."""
@@ -189,8 +242,15 @@ class ImplicitPDE:
         ops_Ae = self._assemble_ops(u, params, emf_basis=emf_basis,
                                     facet_ops=facet_ops, direct=True)
         if self._pf is not None:
+            if self.shard_spec is not None:
+                raise NotImplementedError(
+                    "ImplicitPDE: a plain precond_factory under shard_model "
+                    "(ROADMAP.md, Queue 1)")
             M_state = self._pf(u, params)
         elif self._pc is not None:
+            # under shard_model the split-protocol preconditioner was
+            # split once (its shard_state): its state is built on this
+            # rank's cells of every level, reduced where it is global
             M_state = self._pc.setup_state(u, params, ops_Ae, pc_aux)
         else:
             M_state = None
@@ -206,7 +266,7 @@ class ImplicitPDE:
         u = f * u0 + (1.0 - f) * self.bc_vals
         infos = []
         for _ in range(self.newton_iters):
-            r = self.residual(u, params)
+            r = self._solve_residual(u, params)
             ops_Ae, M_state = self._linearize(u, params, aux)
             solver = self._solver_from(ops_Ae, M_state, u, params)
             u = u - solver.solve(r)
@@ -235,12 +295,26 @@ class ImplicitPDE:
         if not wrt:
             return {}
         fixed = {k: v for k, v in params.items() if k not in wrt}
-
-        def res(*vals):
-            return self.residual(u, {**fixed, **dict(zip(wrt, vals))})
+        spec = self.shard_spec
+        if spec is None:
+            def res(*vals):
+                return self.residual(u, {**fixed, **dict(zip(wrt, vals))})
+        else:
+            # this rank's cells (and, on rank 0, the facet and extra
+            # terms); the BC rows' (u - u_bc) holds no parameter
+            def res(*vals):
+                return self.free_mask * self._rank_residual(
+                    u, {**fixed, **dict(zip(wrt, vals))})
 
         _, vjp_fn = vjp(res, *[params[k] for k in wrt])
-        return {k: -gk for k, gk in zip(wrt, vjp_fn(lam))}
+        grads = vjp_fn(lam)
+        if spec is not None:
+            # one all_reduce of every gradient: a DG0 field's entries come
+            # from one rank each (exact), the others are partial sums
+            flat = spec.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+            grads = [g.reshape(params[k].shape) for g, k in zip(
+                torch.split(flat, [g.numel() for g in grads]), wrt)]
+        return {k: -gk for k, gk in zip(wrt, grads)}
 
     # -------------------------------------------------- public API
     def solve(self, params, u0=None):

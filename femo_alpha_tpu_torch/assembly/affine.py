@@ -53,7 +53,8 @@ class AffineDesignOperator:
     form's dtype and combined in f64, as the JAX package combines them."""
 
     def __init__(self, form, u0, params_of, key="thickness", powers=(1, 3),
-                 probe_scale=1.0, chunk=8192, dtype=None, storage=None):
+                 probe_scale=1.0, chunk=8192, dtype=None, storage=None,
+                 cells=None):
         if storage not in (None, "f32"):
             raise ValueError(f"AffineDesignOperator: storage={storage!r} "
                              "(None or 'f32'; the float-float 'df' is a "
@@ -61,6 +62,7 @@ class AffineDesignOperator:
         self.form = form
         self.key = key
         self.storage = storage
+        self.cells = cells
         self.powers = tuple(int(p) for p in powers)
         K = len(self.powers)
         nc = form.space.mesh.n_cells
@@ -70,7 +72,7 @@ class AffineDesignOperator:
         Ae_probes = [
             element_matrices(form, u0, params_of(torch.full(
                 (nc,), float(t), dtype=u0.dtype, device=u0.device)),
-                chunk=chunk)
+                chunk=chunk, cells=cells)
             for t in probes]
         basis = []
         for k in range(K):
@@ -87,15 +89,16 @@ class AffineDesignOperator:
         f32 copy feeding a preconditioner hierarchy)."""
         out = object.__new__(AffineDesignOperator)
         out.form, out.key, out.powers = self.form, self.key, self.powers
-        out.storage = self.storage
+        out.storage, out.cells = self.storage, self.cells
         out.basis = self.basis.to(dtype)
         out.nc = self.nc
         return out
 
     def element_matrices(self, theta, basis=None):
-        """Ae(theta): (nd, nd, nc) lane-major."""
+        """Ae(theta): (nd, nd, nc) lane-major (the range's cells of a
+        basis built on a cell range, from theta over every cell)."""
         B = self.basis if basis is None else basis
-        return _affine_combine(B, theta, self.powers)
+        return _affine_combine(B, _cut(theta, self.cells), self.powers)
 
     def matvec(self, theta, space, x):
         """A(theta) @ x without materializing Ae: one per-cell pass per
@@ -124,7 +127,7 @@ class AffineDesignOperator:
         raises if the design dependence is not the declared polynomial.
         Returns the relative max-abs error."""
         direct = element_matrices(self.form, u0, params_of(theta),
-                                  chunk=chunk)
+                                  chunk=chunk, cells=self.cells)
         pred = self.element_matrices(theta).to(direct.dtype).permute(2, 0, 1)
         err = float(torch.max(torch.abs(pred - direct)))
         scale = float(torch.max(torch.abs(direct)))
@@ -135,6 +138,11 @@ class AffineDesignOperator:
                 f"scale {scale:.3e} — design dependence is not polynomial "
                 f"with powers {self.powers}")
         return err / max(scale, 1e-300)
+
+
+def _cut(theta, cells):
+    """theta over every cell -> the cells (c0, c1) of a range (None: all)."""
+    return theta if cells is None else theta[cells[0]:cells[1]]
 
 
 def _digest(params):
@@ -174,6 +182,19 @@ class CachedAffineAssembler:
         self.ignore_keys = tuple(ignore_keys)
         self._cache_key = None
         self._aff = None
+        self.cells = None  # spaces.CellRange under a cell split
+
+    def shard(self, cells):
+        """Build and combine over one rank's cells from now on (a
+        spaces.CellRange of the form's space; parallel/product.py): the
+        probes and the verify assemble those cells only, the basis holds
+        them, K2 combines them from theta's slice, `direct` assembles
+        them."""
+        self.cells = cells
+        self._aff, self._cache_key = None, None
+
+    def _range(self):
+        return None if self.cells is None else self.cells.cells
 
     def prepare(self, params, grad_keys=frozenset()):
         """The affine basis for these parameters (built or reused), or None
@@ -202,21 +223,24 @@ class CachedAffineAssembler:
             self._aff = AffineDesignOperator(
                 self.form, u0, params_of, key=self.key, powers=self.powers,
                 probe_scale=ps, chunk=self.chunk, dtype=self.dtype,
-                storage=self.storage)
+                storage=self.storage, cells=self._range())
             if self.verify:
                 self._aff.verify(theta, u0, params_of, chunk=self.chunk)
             self._cache_key = ck
         return self._aff.basis
 
     def combine(self, theta, basis):
-        """Affine combine with an explicit basis -> (nd, nd, nc)."""
-        return _affine_combine(basis, theta, self.powers)
+        """Affine combine with an explicit basis -> (nd, nd, nc) (the
+        range's cells under a split, from theta over every cell)."""
+        return _affine_combine(basis, _cut(theta, self._range()),
+                               self.powers)
 
     def vjp_theta(self, theta, u, lam, space, basis=None):
         """AffineDesignOperator.vjp_theta on the prepared basis (or an
         explicit one)."""
         B = self._aff.basis if basis is None else basis
-        return _vjp_theta(B, self.powers, theta, u, lam, space)
+        return _vjp_theta(B, self.powers, theta, u, lam,
+                          space if self.cells is None else self.cells)
 
     def direct(self, u, params):
         """One direct assembly, lane-major (nd, nd, nc); u None means the
@@ -225,7 +249,8 @@ class CachedAffineAssembler:
         if u is None:
             u = torch.zeros(self.form.space.n_dofs, dtype=th.dtype,
                             device=th.device)
-        Ae = element_matrices(self.form, u, params, chunk=self.chunk)
+        Ae = element_matrices(self.form, u, params, chunk=self.chunk,
+                              cells=self._range())
         return Ae.permute(1, 2, 0).contiguous()
 
     def __call__(self, u, params, basis=None):
@@ -235,6 +260,10 @@ class CachedAffineAssembler:
 
 
 def _vjp_theta(B, powers, theta, u, lam, space):
+    """Per cell of B's cells: space a CellRange gives the range's values,
+    from theta over every cell (_padded puts them on the whole axis)."""
+    cells = getattr(space, "cells", None)
+    theta = _cut(theta, cells)
     ucT = space.gather_T(u).to(B.dtype)
     lcT = space.gather_T(lam).to(B.dtype)
     g = torch.zeros_like(theta)
@@ -245,17 +274,34 @@ def _vjp_theta(B, powers, theta, u, lam, space):
     return g
 
 
+def _padded(g, space, nc):
+    """Per-cell values of a CellRange's cells on the whole cell axis,
+    zero elsewhere (g itself for a whole space): each rank's share of a
+    DG0 gradient, summed over the ranks by parallel.grad_all_reduce."""
+    cells = getattr(space, "cells", None)
+    if cells is None:
+        return g
+    full = g.new_zeros(nc)
+    full[cells[0]:cells[1]] = g
+    return full
+
+
 class AffineOperator:
     """x -> A(theta) x for one design, A affine in theta over a lane-major
     basis: Ae(theta) is combined once by K2 (under no_grad) and applied by
     the fused operator with free = ones. Calls are differentiable in theta
-    and x through AffineApply."""
+    and x through AffineApply. On one rank's cells (space a CellRange, the
+    basis on its range) K2 combines theta's slice, each product ends in
+    the ranks' all_reduce, and d theta is the range's values, zero
+    elsewhere."""
 
     def __init__(self, basis, powers, theta, space):
         self.basis, self.powers, self.space = basis, tuple(powers), space
         self.theta = theta
         with torch.no_grad():
-            self.Ae = _affine_combine(basis, theta.detach(), self.powers)
+            self.Ae = _affine_combine(
+                basis, _cut(theta.detach(), getattr(space, "cells", None)),
+                self.powers)
         ones = torch.ones(space.n_dofs, dtype=self.Ae.dtype,
                           device=self.Ae.device)
         self.matvec = make_constrained_matvec_T(self.Ae, space, ones)
@@ -282,7 +328,8 @@ class AffineApply(torch.autograd.Function):
         g = g.contiguous()
         dth = dx = None
         if ctx.needs_input_grad[0]:
-            dth = _vjp_theta(op.basis, op.powers, theta, x, g, op.space)
+            dth = _padded(_vjp_theta(op.basis, op.powers, theta, x, g,
+                                     op.space), op.space, theta.shape[0])
         if ctx.needs_input_grad[1]:
             dx = op.matvec(g)
         return dth, dx, None

@@ -94,14 +94,35 @@ class FemForm:
         return {name: self._cast(v[cells])
                 for name, v in self.cell_consts.items()}
 
-    def cell_values(self, fn, u, params, chunk=None):
+    def cell_values(self, fn, u, params, chunk=None, cells=None):
         """vmap fn(u_cell, x_cell, pcells) over cells, in blocks of `chunk`
-        cells (bounds the peak memory of wide jacfwd batches)."""
-        uc = self._cast(self.space.gather(u))
-        pc, dims = self.gather_params(params)
-        for name, v in self.consts_of().items():
+        cells (bounds the peak memory of wide jacfwd batches). cells: a
+        range (c0, c1) to run over those cells only (one rank's share of
+        a cell-split operator), gathering only their rows."""
+        if cells is None:
+            uc = self._cast(self.space.gather(u))
+            pc, dims = self.gather_params(params)
+            consts = self.consts_of()
+            xc = self.cell_coords(u.device, uc.dtype)
+        else:
+            c0, c1 = cells
+
+            def rows(space, v):
+                idx = torch.as_tensor(space.dofmap[c0:c1], dtype=torch.int64,
+                                      device=v.device)
+                return v[idx]
+
+            uc = self._cast(rows(self.space, u))
+            pc, dims = {}, {}
+            for name, sp in self.param_specs.items():
+                v = params[name]
+                pc[name], dims[name] = ((v, None) if sp is None else
+                                        (self._cast(rows(sp, v)), 0))
+            consts = self.consts_of(torch.arange(c0, c1, device=u.device))
+            xc = torch.as_tensor(self._coords_np[c0:c1], dtype=uc.dtype,
+                                 device=u.device)
+        for name, v in consts.items():
             pc[name], dims[name] = v, 0
-        xc = self.cell_coords(uc.device, uc.dtype)
         batched = vmap(fn, in_dims=(0, 0, dims))
         nc = uc.shape[0]
         if chunk is None or nc <= chunk:
@@ -151,10 +172,12 @@ def assemble_scalar_subset(form: FemForm, u, params, cells):
     return vmap(form.energy_kernel, in_dims=(0, 0, dims))(uc, xc, pc).sum()
 
 
-def element_matrices(form: FemForm, u, params=None, chunk=16384):
-    """Per-cell Jacobian dR_cell/du_cell: (nc, nd, nd), cell-major."""
+def element_matrices(form: FemForm, u, params=None, chunk=16384,
+                     cells=None):
+    """Per-cell Jacobian dR_cell/du_cell: (nc, nd, nd), cell-major; over
+    the cell range cells = (c0, c1) only when given."""
     jac = jacfwd(form.kernel, argnums=0)
-    return form.cell_values(jac, u, params or {}, chunk=chunk)
+    return form.cell_values(jac, u, params or {}, chunk=chunk, cells=cells)
 
 
 # --------------------------------------------------------------------------
@@ -266,6 +289,12 @@ def make_constrained_matvec_T(Ae_T, space, free):
     LANE-MAJOR element matrices (nd, nd, nc), as one fused pass over them
     (cuda_kernels.constrained_matvec_T on the space's cached index tables):
     what constrain_matvec(make_matvec_T(Ae_T, space), free) computes, in
-    f64 or f32, with no eager op around the kernel."""
+    f64 or f32, with no eager op around the kernel. On one rank's cells of
+    a cell-split operator (space a spaces.CellRange, Ae_T its cells) the
+    kernel runs over those cells and one all_reduce sums the ranks'
+    results, the identity term counted once (CellShardSpec.split_operator).
+    """
     dofmap_T, inv = space.lane_tables(Ae_T.device)
-    return constrained_matvec_T(Ae_T, free, dofmap_T, inv)
+    op = constrained_matvec_T(Ae_T, free, dofmap_T, inv)
+    comm = getattr(space, "comm", None)
+    return op if comm is None else comm.split_operator(op, free)

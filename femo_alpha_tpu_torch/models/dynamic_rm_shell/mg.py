@@ -101,7 +101,8 @@ def build_platesim_mg(sim, coarsest_cells=64, dtype=None, degree=6,
                 return asm_k(None, q)
             return asm_k.direct(None, q)
 
-        return pde_k, {"space": pde_k.W, "free": free_k, "make_Ae": make_Ae}
+        return pde_k, {"space": pde_k.W, "free": free_k, "make_Ae": make_Ae,
+                       "asm": asm_k}
 
     # the fine level's operator is the PlateSim's own, passed to
     # GeometricMG.setup as Ae0

@@ -33,11 +33,17 @@ cotangent of its element matrices, -(f lam)_c (f w)_c^T for a solve;
 autograd sums them over the steps and takes them through the direct
 assembly once (the vjp of the element assembly in the thickness).
 
-The multi-chip `shard_spec` is not ported (ROADMAP.md, Queue 1), nor is
-the JAX package's fixed-trip inner CG, a TPU workaround: `inner_iters`
-caps PCG's iterations at the same target instead. The simulator runs on
-the CUDA card unless `device` names another; without a card and without
-`device` it raises (pass device="cpu" for the CPU).
+Under parallel/product.py::shard_model (`shard_spec`) each rank holds
+its own cells of K's, M's and A's bases (or of the directly assembled
+element matrices) and of every step-MG level: every K, M and step-operator
+product and every V-cycle pass runs the fused operator over the rank's
+cells, then one all_reduce; the design gradient through them comes back
+on the rank's cells and is summed over the ranks once per backward
+(parallel.grad_all_reduce). Loads, energies and outputs stay replicated.
+The JAX package's fixed-trip inner CG, a TPU workaround, is not ported:
+`inner_iters` caps PCG's iterations at the same target instead. The
+simulator runs on the CUDA card unless `device` names another; without a
+card and without `device` it raises (pass device="cpu" for the CPU).
 """
 
 from __future__ import annotations
@@ -55,6 +61,8 @@ from ...assembly.affine import (
     AffineOperator,
     CachedAffineAssembler,
     _affine_combine,
+    _cut,
+    _padded,
     _vjp_theta,
 )
 from ...assembly.assemble import (
@@ -134,15 +142,21 @@ class _StepOperators:
     CG iterations) of every solve."""
 
     def __init__(self, sim, theta):
-        W, free = sim.W, sim.free_mask
-        self.free, self.space = free, W
+        # the space, or this rank's cells of it under a split (the design
+        # then enters through grad_all_reduce: the split products give
+        # the rank's cells of its gradient)
+        W, free = sim._op_space(), sim.free_mask
+        theta = sim._split_design(theta)
+        self.free, self.space, self.nc = free, W, sim.nel
         if sim.element_wise_thickness:
             BK, BM, BA = sim._bases(theta)
             self.BA = BA
             self.K = AffineOperator(BK, (1, 3), theta, W)
             self.M = AffineOperator(BM, (1,), theta, W)
             with torch.no_grad():
-                Ae = _affine_combine(BA, theta.detach(), (1, 3))
+                Ae = _affine_combine(
+                    BA, _cut(theta.detach(), getattr(W, "cells", None)),
+                    (1, 3))
             self.design = theta
         else:
             Ke, Me = sim._element_mats(theta)
@@ -191,8 +205,9 @@ class _StepOperators:
         product -(f lam)_c (f w)_c^T (nodal element matrices)."""
         f = self.free
         if design.dim() == 1:
-            return -_vjp_theta(self.BA, (1, 3), design, f * w, f * lam,
-                               self.space)
+            return -_padded(_vjp_theta(self.BA, (1, 3), design, f * w,
+                                       f * lam, self.space),
+                            self.space, self.nc)
         return -_cell_outer(self.space, f * lam, f * w)
 
     def residual(self, b, w):
@@ -285,6 +300,7 @@ class PlateSim:
         self.solver_method = solver_method
         self.inner_iters = inner_iters
         self._step_key = (dt, Nsteps)  # A's basis and the MG were made for
+        self.shard_spec = None  # parallel/product.py::shard_model
 
         # mutable state (parity with update_t / update_f_history)
         self.t_array = torch.full((nT,), 0.1, **t64)
@@ -347,13 +363,45 @@ class PlateSim:
     def _m_params(self, t_arr):
         return {"thickness": t_arr, "rho": self._rho}
 
+    def shard(self, spec):
+        """Split the simulator's cell-indexed operators over the ranks of a
+        CellShardSpec (parallel/product.py::shard_model): K's and M's bases
+        (and A's, made from them) or the direct assemblies on this rank's
+        cells, and the step MG's levels."""
+        self.shard_spec = spec
+        cells = spec.cells_of(self.W)
+        self._K_asm.shard(cells)
+        self._M_asm.shard(cells)
+        self._BA = None
+        if self.mg is not None:
+            from ...parallel.product import shard_mg_state
+
+            shard_mg_state(self.mg, spec)
+
+    def _op_space(self):
+        """The space of the cell-indexed operators: W, or this rank's cells
+        of it under a split."""
+        spec = self.shard_spec
+        return self.W if spec is None else spec.cells_of(self.W)
+
+    def _split_design(self, theta):
+        """theta, entering the rank's split operators (its gradient through
+        them summed over the ranks); theta itself without a split."""
+        if self.shard_spec is None:
+            return theta
+        from ...parallel.product import grad_all_reduce
+
+        return grad_all_reduce(theta, self.shard_spec)
+
     def _element_mats(self, t_arr):
         """K's and M's lane-major element matrices (nd, nd, nc), assembled
-        directly (nodal thickness); differentiable in t_arr."""
+        directly (nodal thickness); differentiable in t_arr. Under a split:
+        this rank's cells only."""
+        cells = getattr(self._op_space(), "cells", None)
         Ke = element_matrices(self.K_form, self._zero_w,
-                              self._k_params(t_arr))
+                              self._k_params(t_arr), cells=cells)
         Me = element_matrices(self.M_form, self._zero_w,
-                              self._m_params(t_arr))
+                              self._m_params(t_arr), cells=cells)
         return (Ke.permute(1, 2, 0).contiguous(),
                 Me.permute(1, 2, 0).contiguous())
 
@@ -373,6 +421,10 @@ class PlateSim:
                 self.mg = build_platesim_mg(
                     self, coarsest_cells=self.mg_coarsest_cells,
                     dtype=getattr(self.mg, "dtype", None))
+                if self.shard_spec is not None:
+                    from ...parallel.product import shard_mg_state
+
+                    shard_mg_state(self.mg, self.shard_spec)
             c2 = 2.0 / self.dt ** 2
             self._BA = torch.stack([c2 * BM[0] + 0.5 * BK[0], 0.5 * BK[1]])
             self._step_key = key
@@ -554,15 +606,16 @@ class PlateSim:
         dt = self.dt
 
         def residual(w, w_old, wdot_old, t_arr, f):
-            theta = self._tensor(t_arr)
+            theta = self._split_design(self._tensor(t_arr))
+            W = self._op_space()
             if self.element_wise_thickness:
                 BK, BM, _ = self._bases(theta)
-                K = AffineOperator(BK, (1, 3), theta, self.W)
-                M = AffineOperator(BM, (1,), theta, self.W)
+                K = AffineOperator(BK, (1, 3), theta, W)
+                M = AffineOperator(BM, (1,), theta, W)
             else:
                 Ke, Me = self._element_mats(theta)
-                K = _ElementOperator(Ke, self.W)
-                M = _ElementOperator(Me, self.W)
+                K = _ElementOperator(Ke, W)
+                M = _ElementOperator(Me, W)
             wdot = (2.0 / dt) * (w - w_old) - wdot_old
             wddot = (wdot - wdot_old) / dt
             F = self.assemble_load(f)

@@ -126,7 +126,8 @@ def build_shell_mg(pde, bc_func, coarsest_cells=256, dtype=None, degree=6,
                 return asm_k.direct(None, q)
             return asm_k(None, q, basis=basis)
 
-        lev = {"space": pde_k.W, "free": free_k, "make_Ae": make_Ae}
+        lev = {"space": pde_k.W, "free": free_k, "make_Ae": make_Ae,
+               "asm": asm_k}
         if affine:
             lev["affine_asm"] = asm_k
         levels.append(lev)
@@ -235,6 +236,17 @@ class ShellMGPrecond:
         return self.mg.setup(p, Ae0=ops_Ae[0],
                              dtype=self.dtype or torch.float64,
                              bases=aux if aux else None)
+
+    def shard_state(self, spec):
+        """Split the hierarchy over the ranks of a CellShardSpec
+        (parallel/product.py::shard_mg_state): every later `prepare` builds
+        each coarser level's basis on this rank's cells, and `setup_state`
+        the rank's cells of every level (the fine one is the solve's own,
+        already split), with the smoother blocks and the coarse matrix
+        summed over the ranks."""
+        from ...parallel.product import shard_mg_state
+
+        shard_mg_state(self.mg, spec)
 
     def apply_state(self, state, v):
         return _cycle_in(self.mg, state, v)

@@ -517,6 +517,10 @@ class RMShellModel:
         iterations), no autograd graph."""
         pde = self.shell_pde
         ipde = self.fea.states["disp_solid"].pde
+        if ipde.shard_spec is not None:
+            raise NotImplementedError(
+                "RMShellModel: modal analysis under shard_model (ROADMAP.md, "
+                "Queue 1)")
         W = pde.W
         n = W.n_dofs
         with torch.no_grad():

@@ -269,9 +269,23 @@ class AggregationAMG:
         self.agg = agg_per_dof
         self.w = w
         self._index_cache = {}
-        self._coarse_host = None
+        self._coarse_host = {}
+        self.cells = None  # spaces.CellRange under a cell split
         # aggregation, nullspace and QR, host seconds
         self.host_setup_s = time.perf_counter() - t0
+
+    def shard(self, cells):
+        """Set up from one rank's cells from now on (a spaces.CellRange;
+        parallel/product.py): the Schwarz blocks and the operator over
+        them, the assembled diagonal and the coarse Galerkin matrix summed
+        over the ranks; aggregation, transfers and the coarse inverse
+        replicated."""
+        self.cells = cells
+
+    def _W(self):
+        """The space the per-cell setup and apply run on: the whole space,
+        or this rank's cells of it."""
+        return self.space if self.cells is None else self.cells
 
     # ------------------------------------------------------------ tables
     def _tables(self, device):
@@ -291,8 +305,10 @@ class AggregationAMG:
         cell's distinct aggregates, the position of each local dof's
         aggregate among them, and the (aggregate pair) target of each valid
         (cell, p, q) block."""
-        if self._coarse_host is None:
-            G = self.agg[np.asarray(self.space.dofmap, dtype=np.int64)]
+        W = self._W()
+        rng = getattr(W, "cells", None)
+        if rng not in self._coarse_host:
+            G = self.agg[np.asarray(W.dofmap, dtype=np.int64)]
             nc, nd = G.shape
             order = np.argsort(G, axis=1, kind="stable")
             Gs = np.take_along_axis(G, order, axis=1)
@@ -308,12 +324,14 @@ class AggregationAMG:
             valid = (L[:, :, None] >= 0) & (L[:, None, :] >= 0)  # (nc,m,m)
             target = L[:, :, None] * self.n_agg + L[:, None, :]
             valid_idx = np.nonzero(valid.reshape(-1))[0]
-            self._coarse_host = (m, pos, valid_idx,
-                                 target.reshape(-1)[valid_idx])
-        return self._coarse_host
+            self._coarse_host[rng] = (m, pos, valid_idx,
+                                      target.reshape(-1)[valid_idx])
+        return self._coarse_host[rng]
 
     def _coarse_tables(self, device, dtype):
-        key = ("coarse_tables", str(device), dtype)
+        W = self._W()
+        rng = getattr(W, "cells", None)
+        key = ("coarse_tables", str(device), dtype, rng)
         t = self._index_cache.get(key)
         if t is None:
             m, pos, valid_idx, target = self._coarse_plan_host()
@@ -321,9 +339,10 @@ class AggregationAMG:
             t = self._index_cache[key] = (
                 m, torch.as_tensor(onehot, dtype=dtype, device=device),
                 torch.as_tensor(valid_idx, device=device),
-                torch.as_tensor(np.asarray(self.space.dofmap,
-                                           dtype=np.int64), device=device))
-        plan = sum_plan(self, "coarse", self._coarse_plan_host()[3], device)
+                torch.as_tensor(np.asarray(W.dofmap, dtype=np.int64),
+                                device=device))
+        plan = sum_plan(self, ("coarse", rng), self._coarse_plan_host()[3],
+                        device)
         return t + (plan,)
 
     # --------------------------------------------------------------- P ops
@@ -364,6 +383,8 @@ class AggregationAMG:
             C[s:e] = Cc.reshape(e - s, m, 6, m, 6).permute(0, 1, 3, 2, 4)
         vals = C.reshape(nc * m * m, 36)[valid_idx]
         Ac = fixed_order_reduce(vals, plan, NA * NA)
+        if self.cells is not None:
+            self.cells.comm.all_reduce(Ac)  # one rank's cells: the sum
         # coarse dof order is mode-major (k NA + I), matching
         # prolong/restrict: entry (k NA + I, l NA + J) = Ac[I, J, k, l]
         Ac = Ac.reshape(NA, NA, 6, 6).permute(2, 0, 3, 1).reshape(
@@ -387,7 +408,7 @@ class AggregationAMG:
             dev, dtype = Ae_T.device, Ae_T.dtype
             free = (self._tables(dev)[2] if free_mask is None
                     else free_mask).to(dtype).contiguous()
-            W = self.space
+            W = self._W()
             sm = self._smoother_arrays(Ae_T, free)
             mv = _masked_matvec(Ae_T, W, free)
             lmax = estimate_lmax(
@@ -400,10 +421,10 @@ class AggregationAMG:
                 "free": free, "coarse_inv": coarse_inv, "coarse_scale": s}
 
     def _smoother_arrays(self, Ae_T, free):
-        return schwarz_arrays_T(Ae_T, self.space, free)
+        return schwarz_arrays_T(Ae_T, self._W(), free)
 
     def _smooth_apply(self, sm, v):
-        return apply_schwarz_T(self.space, sm[0], sm[1], v)
+        return apply_schwarz_T(self._W(), sm[0], sm[1], v)
 
     # -------------------------------------------------------------- apply
     def _state_in(self, state, dtype):
@@ -419,7 +440,7 @@ class AggregationAMG:
                 cast[dtype] = {
                     "free": free,
                     "matvec": _masked_matvec(state["Ae"].to(dtype),
-                                             self.space, free),
+                                             self._W(), free),
                     "sm": tuple(a.to(dtype) for a in state["sm"]),
                     "lmax": state["lmax"].to(dtype),
                     "coarse_inv": state["coarse_inv"].to(dtype),
@@ -497,7 +518,7 @@ def _split_state(amg, cell_Ae_T, facet_ops, free, dtype=None):
         free = torch.as_tensor(free, **kw)
         st = amg.setup(cell_Ae_T, free_mask=free * (1.0 - pen_mask),
                        dtype=dtype)
-        diag = amg.space.scatter_add(
+        diag = amg._W().scatter_add(
             torch.diagonal(cell_Ae_T, dim1=0, dim2=1))
         diag_full = (diag + pen_diag) * free + (1.0 - free)
         safe = torch.where(diag_full != 0.0, diag_full,
@@ -559,6 +580,12 @@ class AMGPrecondFactory:
 
     def prepare(self, params, grad_keys=frozenset()):
         return ()
+
+    def shard_state(self, spec):
+        """Set the AMG up from this rank's cells of the cell block
+        (AggregationAMG.shard); the penalty split's facet blocks stay
+        replicated."""
+        self.amg.shard(spec.cells_of(self._specs[0]))
 
     def setup_state(self, u, params, ops_Ae, aux):
         return _split_state(self.amg, ops_Ae[0],

@@ -287,6 +287,15 @@ class BandCholPrecond:
             free = np.asarray(torch.as_tensor(free).cpu(), dtype=np.float64)
         self._dofmaps, self._free = [np.asarray(d) for d in dofmaps], free
         self._tables = {}
+        self.cells = None  # spaces.CellRange of the first block, split
+
+    def shard(self, cells):
+        """Assemble the first (cell) block from one rank's cells from now
+        on (a spaces.CellRange; parallel/product.py): the rank's entries,
+        one all_reduce of the band, then the replicated blocks and the
+        unit diagonal of dead rows. The factor and solves are
+        replicated."""
+        self.cells = cells
 
     def mem_bytes_reference(self):
         """The reference's memory estimate of this band (its guard): f64
@@ -302,26 +311,64 @@ class BandCholPrecond:
             slots, inv = band_assembly_plan(self._dofmaps, self.iperm,
                                             self.n, self.w, self.m,
                                             free=self._free)
-            rows = np.arange(self.n_pad)
-            dead = rows >= self.n
-            if self._free is not None:
-                fperm = np.ones(self.n_pad)
-                fperm[:self.n] = self._free[self.perm]
-                dead |= fperm == 0
-            dr = rows[dead]
-            fill = (dr // self.w) * (self.w * self.K) + (dr % self.w) * \
-                self.K + self.m * self.w + dr % self.w
             tab = self._tables[key] = tuple(
                 torch.as_tensor(a, dtype=torch.int64, device=device)
-                for a in (self.perm, self.iperm, slots, inv, fill))
+                for a in (self.perm, self.iperm, slots, inv,
+                          self._dead_fill()))
         return tab
+
+    def _dead_fill(self):
+        """The flat band slots of the unit diagonal of the constrained and
+        padding rows."""
+        rows = np.arange(self.n_pad)
+        dead = rows >= self.n
+        if self._free is not None:
+            fperm = np.ones(self.n_pad)
+            fperm[:self.n] = self._free[self.perm]
+            dead |= fperm == 0
+        dr = rows[dead]
+        return (dr // self.w) * (self.w * self.K) + (dr % self.w) * \
+            self.K + self.m * self.w + dr % self.w
 
     def assemble(self, ops):
         """The block-band storage (nb, w, K), f64, of the sum of the
-        lane-major element blocks `ops` (in the order of `dofmaps`)."""
+        lane-major element blocks `ops` (in the order of `dofmaps`; under
+        `shard` the first block holds one rank's cells)."""
+        if self.cells is not None:
+            return self._assemble_split(ops)
         _, _, slots, inv, fill = self.tables(ops[0].device)
         return assemble_block_band(ops, slots, inv, fill, self.nb, self.w,
                                    self.K)
+
+    def _split_tables(self, device):
+        """(cell slots, cell inv) over the rank's cells, without the unit
+        diagonal, and (slots, inv) of the replicated blocks, or None."""
+        key = ("split", str(device), self.cells.cells)
+        tab = self._tables.get(key)
+        if tab is None:
+            def plan(dms):
+                return tuple(torch.as_tensor(a, dtype=torch.int64,
+                                             device=device)
+                             for a in band_assembly_plan(
+                                 dms, self.iperm, self.n, self.w, self.m,
+                                 free=self._free))
+            rest = plan(self._dofmaps[1:]) if len(self._dofmaps) > 1 \
+                else None
+            fill = torch.as_tensor(self._dead_fill(), dtype=torch.int64,
+                                   device=device)
+            tab = self._tables[key] = (plan([self.cells.dofmap]), rest, fill)
+        return tab
+
+    def _assemble_split(self, ops):
+        (sc, ic), rest, fill = self._split_tables(ops[0].device)
+        R = assemble_block_band(ops[:1], sc, ic, fill[:0], self.nb, self.w,
+                                self.K)
+        self.cells.comm.all_reduce(R)
+        if rest is None:
+            R.view(-1)[fill] = 1.0
+            return R
+        return R + assemble_block_band(ops[1:], rest[0], rest[1], fill,
+                                       self.nb, self.w, self.K)
 
     def permute_ops(self, ops):
         """[(Ae, spec)] element blocks -> [(Ae, the spec's dofmap in the
@@ -391,9 +438,16 @@ class BandPrecond:
                  shift=1e-5):
         self.band = BandCholPrecond(space, dofmaps, dtype=dtype, shift=shift,
                                     free=free_mask)
+        self.space = space
 
     def prepare(self, params, grad_keys=frozenset()):
         return ()
+
+    def shard_state(self, spec):
+        """Assemble the band from this rank's cells of the cell block and
+        sum it over the ranks (BandCholPrecond.shard); the factor and its
+        solves are replicated."""
+        self.band.shard(spec.cells_of(self.space))
 
     def setup_state(self, u, params, ops_Ae, aux):
         return self.band.setup(ops_Ae)

@@ -39,7 +39,10 @@ from .precond import jacobi_from_blocks
 
 def dense_from_blocks(ops, n_dofs):
     """The assembled (n, n) matrix of lane-major element blocks
-    [(Ae (nd, nd, nc), spec with a (nc, nd) `dofmap`)]."""
+    [(Ae (nd, nd, nc), spec with a (nc, nd) `dofmap`)]. A cell block on
+    one rank's cells (the first block, its spec a spaces.CellRange) is
+    summed over the ranks by one all_reduce before the replicated blocks
+    are added."""
     Ae0 = ops[0][0]
     A = Ae0.new_zeros((n_dofs, n_dofs))
     for Ae, spec in ops:
@@ -49,12 +52,18 @@ def dense_from_blocks(ops, n_dofs):
         cols = dm[None, :, :].expand(Ae.shape)
         A.index_put_((rows.reshape(-1), cols.reshape(-1)), Ae.reshape(-1),
                      accumulate=True)
+        comm = getattr(spec, "comm", None)
+        if comm is not None:
+            comm.all_reduce(A)
     return A
 
 
 def _sum_of_blocks(ops, free_mask):
     """The constrained operator of a list of lane-major blocks: one fused
     operator per block; every block adds (1-f)*x, the sum keeps it once.
+    A cell block on one rank's cells (its spec a spaces.CellRange) is the
+    split operator, its identity term counted once over the ranks
+    (parallel/product.py); the replicated facet blocks follow it.
     A block stored in f32 under f64 vectors (the fine operator under
     storage="f32") runs the fused operator's f32-matrix, f64-vector build:
     its f32 entries applied in f64 arithmetic, as the JAX package's

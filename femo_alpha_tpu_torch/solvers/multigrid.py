@@ -309,7 +309,8 @@ def block_jacobi_arrays(Ae, W, free):
     """Per-node value_size x value_size inverted diagonal blocks for each
     subspace of a MixedSpace, from cell-major element matrices
     (nc, nd, nd), assembled in a fixed order. Returns a list of
-    (n_scalar, bs, bs) arrays."""
+    (n_scalar, bs, bs) arrays. W a spaces.CellRange: Ae holds its cells,
+    and the blocks are summed over the ranks before they are inverted."""
     nc = Ae.shape[0]
     out = []
     for i, sub in enumerate(W.subspaces):
@@ -324,6 +325,8 @@ def block_jacobi_arrays(Ae, W, free):
         D = fixed_order_scatter(
             blocks.reshape(nc * nds, bs * bs), plan, sub.n_scalar_dofs
         ).reshape(sub.n_scalar_dofs, bs, bs)
+        if getattr(W, "comm", None) is not None:
+            W.comm.all_reduce(D)  # one rank's cells: sum over the ranks
         o_g = int(W.offsets[i])
         fm = free[o_g: o_g + sub.n_dofs].reshape(sub.n_scalar_dofs, bs)
         eye = torch.eye(bs, dtype=D.dtype, device=D.device)[None]
@@ -397,10 +400,13 @@ def apply_schwarz_T(W, inv_T, sqrt_w_T, v):
     One gather of the cell values (the space's lane tables), the per-cell
     contraction by K1 (cuda_kernels.cell_matvec_T: the kernel on a CUDA
     tensor, its plain twin on a CPU one), and each dof's sum over its cell
-    entries in the tables' fixed order (cuda_kernels.gather_sum)."""
+    entries in the tables' fixed order (cuda_kernels.gather_sum). W a
+    spaces.CellRange: one rank's cells, then the ranks' all_reduce."""
     dofmap_T, inv = _schwarz_tables(W, v.device)
     vcT = v[dofmap_T] * sqrt_w_T
-    return gather_sum(cell_matvec_T(inv_T, vcT) * sqrt_w_T, inv)
+    y = gather_sum(cell_matvec_T(inv_T, vcT) * sqrt_w_T, inv)
+    comm = getattr(W, "comm", None)
+    return y if comm is None else comm.all_reduce(y)
 
 
 def estimate_lmax(matvec, Minv, n, dtype, device, iters=25):
@@ -484,6 +490,8 @@ def dense_constrained(Ae, W, free):
     plan = sum_plan(W, "dense", dm[:, :, None] * n + dm[:, None, :],
                      Ae.device)
     A = fixed_order_scatter(Ae.reshape(-1), plan, n * n).reshape(n, n)
+    if getattr(W, "comm", None) is not None:
+        W.comm.all_reduce(A)  # one rank's cells: sum over the ranks
     return A * free[:, None] * free[None, :] + torch.diag(1.0 - free)
 
 
@@ -555,6 +563,26 @@ class GeometricMG:
         self.transfers = [MixedTransfer(levels[k + 1]["space"],
                                         levels[k]["space"])
                           for k in range(len(levels) - 1)]
+        self.spec = None
+
+    def shard(self, spec):
+        """Split every level over the ranks of a CellShardSpec
+        (parallel/product.py): `setup` then builds this rank's cells of
+        each level's Ae (its assembler `asm`, or the caller's Ae0 on the
+        fine level), smoother blocks and operator, and sums the global
+        pieces (smoother blocks, the coarse matrix) over the ranks; the
+        transfers, smoother inverses and coarse inverse are replicated."""
+        for k, lev in enumerate(self.levels):
+            view = spec.cells_of(lev["space"])
+            asm = lev.get("asm")
+            if asm is not None:
+                asm.shard(view)
+            elif k > 0 or lev.get("make_Ae") is not None:
+                raise NotImplementedError(
+                    f"GeometricMG.shard: level {k} has no assembler that "
+                    "can split (ROADMAP.md, Queue 1)")
+            lev["cells"] = view
+        self.spec = spec
 
     # ----------------------------------------------------------- setup
     def setup(self, params, Ae0=None, dtype=None, bases=None):
@@ -576,7 +604,7 @@ class GeometricMG:
                       for k, v in params.items()}
             Ae0 = None if Ae0 is None else Ae0.to(dtype).contiguous()
         state = {"Ae": [], "matvec": [], "free": [], "blocks": [],
-                 "lmax": []}
+                 "lmax": [], "space": []}
         p = params
         for k, lev in enumerate(self.levels):
             pk = p if bases is None else {**p, "_affine_basis": bases[k]}
@@ -584,7 +612,9 @@ class GeometricMG:
             state["Ae"].append(Ae)
             free_k = _free_in(lev, Ae.dtype)
             state["free"].append(free_k)
-            W = lev["space"]
+            # the level's space, or this rank's cells of it under a split
+            W = lev["cells"] if self.spec is not None else lev["space"]
+            state["space"].append(W)
             if k < len(self.levels) - 1:
                 sm = self._smoother_arrays(Ae, W, free_k)
                 state["blocks"].append(sm)
@@ -632,7 +662,7 @@ class GeometricMG:
         if k == len(self.levels) - 1:
             s = state["coarse_scale"]
             return s * (state["coarse_inv"] @ (s * b))
-        W = self.levels[k]["space"]
+        W = state["space"][k]
         mv = state["matvec"][k]
         sm = state["blocks"][k]
         lmax = state["lmax"][k]

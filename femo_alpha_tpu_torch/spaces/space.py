@@ -74,15 +74,21 @@ def lane_index_tables(dofmap, n_dofs):
 class _LaneTables:
     """Spaces with a `dofmap`, `n_dofs` and an `_index_cache` dict."""
 
-    def lane_tables(self, device):
+    def lane_tables(self, device, cells=None):
         """(dofmap_T, inv) of `lane_index_tables` on `device`, built once
-        and cached per device."""
-        key = ("lane", str(device))
+        and cached per device: over every cell, or over the cell range
+        cells = (c0, c1) (dofmap_T (nd, c1 - c0), and inv's entries index
+        that range's (nd, c1 - c0) cell values; dofs keep the space's
+        numbering)."""
+        key = ("lane", str(device)) if cells is None else (
+            "lane", str(device), tuple(cells))
         tables = self._index_cache.get(key)
         if tables is None:
+            dm = self.dofmap if cells is None else \
+                self.dofmap[cells[0]:cells[1]]
             tables = self._index_cache[key] = tuple(
                 torch.as_tensor(t, device=device)
-                for t in lane_index_tables(self.dofmap, self.n_dofs))
+                for t in lane_index_tables(dm, self.n_dofs))
         return tables
 
 
@@ -305,6 +311,74 @@ class MixedSpace(_LaneTables):
 
     def function(self, array=None, name=None, device=None):
         return Function(self, array=array, name=name, device=device)
+
+
+class CellRange(_LaneTables):
+    """The cells c0:c1 of a space (a FunctionSpace or a MixedSpace) as one
+    rank of a cell-split operator holds them (parallel/product.py).
+
+    Cell-indexed data covers the range only: `dofmap` (and each
+    subspace's `scalar_dofmap`) are the range's rows, `gather` /
+    `gather_T` give the range's cell values, and `lane_tables` index the
+    range's (nd, c1 - c0) cell values. Dof vectors keep the whole space's
+    numbering, and what sums cell values into dofs returns the sum over
+    every rank's cells, replicated: `scatter_add` / `scatter_add_T` and
+    the fused operator on the range (assembly/assemble.py) end in one
+    `comm.all_reduce`."""
+
+    def __init__(self, space, c0, c1, comm):
+        self.space, self.cells, self.comm = space, (int(c0), int(c1)), comm
+        self.nc = int(c1) - int(c0)
+        self.mesh = space.mesh
+        self.n_dofs = space.n_dofs
+        self.nd_local = space.nd_local
+        self.dofmap = space.dofmap[c0:c1]
+        self._index_cache = {}
+        for name in ("family", "degree", "value_size", "element",
+                     "n_scalar_dofs", "offsets", "local_slices"):
+            if hasattr(space, name):
+                setattr(self, name, getattr(space, name))
+        if hasattr(space, "scalar_dofmap"):
+            self.scalar_dofmap = space.scalar_dofmap[c0:c1]
+        if hasattr(space, "subspaces"):
+            self.subspaces = [CellRange(sub, c0, c1, comm)
+                              for sub in space.subspaces]
+
+    def lane_tables(self, device, cells=None):
+        """The whole space's lane tables over this range (cached there)."""
+        return self.space.lane_tables(device, cells=self.cells)
+
+    def _rows(self, device):
+        key = ("rows", str(device))
+        idx = self._index_cache.get(key)
+        if idx is None:
+            idx = self._index_cache[key] = torch.as_tensor(
+                self.dofmap, dtype=torch.int64, device=device)
+        return idx
+
+    def split(self, x):
+        return self.space.split(x)
+
+    def gather(self, x):
+        """(n_dofs,) -> (c1 - c0, nd_local): the range's cell values."""
+        return x[self._rows(x.device)]
+
+    def gather_T(self, x):
+        return self.gather(x).T.contiguous()
+
+    def partial_scatter_add(self, cell_vals):
+        """(c1 - c0, nd_local) -> (n_dofs,): this rank's range alone, summed
+        in a fixed order (differentiable; not summed over the ranks)."""
+        plan = sum_plan(self, "scatter", self.dofmap, cell_vals.device)
+        return fixed_order_scatter(cell_vals.reshape(-1), plan, self.n_dofs)
+
+    def scatter_add(self, cell_vals):
+        """(c1 - c0, nd_local) on every rank -> (n_dofs,): each rank sums
+        its range in a fixed order, then one all_reduce."""
+        return self.comm.all_reduce(self.partial_scatter_add(cell_vals))
+
+    def scatter_add_T(self, cell_vals_T):
+        return self.scatter_add(cell_vals_T.T)
 
 
 class Function:

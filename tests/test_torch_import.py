@@ -44,7 +44,8 @@ def test_every_module_imports_without_jax():
               "bench", "config", "io.xdmf", "io.recorder", "models.poisson",
               "models.elasticity", "models.beam", "solvers.newton",
               "solvers.precond", "solvers.amg", "assembly.sparse",
-              "native.topology"):
+              "native.topology", "parallel", "parallel.product",
+              "parallel.sharding", "parallel.ranks"):
         assert "femo_alpha_tpu_torch." + m in mods
     # the example studies: one module per script under examples/
     from femo_alpha_tpu_torch.examples import EXAMPLES
@@ -195,7 +196,8 @@ def test_unported_configurations_raise(what, monkeypatch):
 
 # the JAX package's public names that the port replaces instead of porting
 # them (ROADMAP.md, "Replace, do not port")
-REPLACED_NAMES = {"solvers": {"cg_solve_hostloop"}, "assembly": set()}
+REPLACED_NAMES = {"solvers": {"cg_solve_hostloop"}, "assembly": set(),
+                  "parallel": set()}
 
 
 def _reference_all(package):
@@ -212,17 +214,32 @@ def _reference_all(package):
     raise AssertionError(f"no __all__ in {path}")
 
 
-@pytest.mark.parametrize("package", ["assembly", "solvers"])
+@pytest.mark.parametrize("package", ["assembly", "solvers", "parallel"])
 def test_public_names_cover_the_reference(package):
-    """The port's assembly and solvers export every public name of the JAX
-    package's (make_matvec, scatter_add, BandCholPrecond,
-    band_precond_factory, make_space_transfer among them), less the ones
-    it replaces."""
+    """The port's assembly, solvers and parallel export every public name
+    of the JAX package's (make_matvec, scatter_add, BandCholPrecond,
+    band_precond_factory, make_space_transfer, make_device_mesh and the
+    three demo classes among them), less the ones it replaces."""
     mod = importlib.import_module("femo_alpha_tpu_torch." + package)
     missing = _reference_all(package) - REPLACED_NAMES[package] - set(
         mod.__all__)
     assert not missing, missing
     assert all(hasattr(mod, name) for name in mod.__all__)
+
+
+def test_shard_model_rejects_an_unknown_target():
+    """shard_model takes an RMShellModel, FEA, ImplicitPDE or PlateSim and
+    raises TypeError on anything else, as the reference's does; the port's
+    product module exports the reference's names."""
+    from femo_alpha_tpu_torch.parallel import product
+
+    for name in ("CellShardSpec", "shard_aux", "shard_ops",
+                 "shard_mg_state", "shard_model", "make_device_mesh"):
+        assert hasattr(product, name)
+    with pytest.raises(TypeError, match="shard"):
+        product.shard_model(object())
+    mesh = product.make_device_mesh()
+    assert (mesh.size, mesh.rank) == (1, 0)
 
 
 def test_df_operator_storage_raises(monkeypatch):
