@@ -159,18 +159,28 @@ at 512x128 (988,806 dofs, five MG levels), checked by bench.py's
 quality gate, against a direct solve of the same assembled system on the
 card (band Cholesky + refinement) and, within that direct solve's own
 distance, against the committed host-f64 golden of the JAX package's
-system, with the fused operator and K2 at its fine level's shapes.
+system, with the fused operator and K2 at its fine level's shapes; its
+first call runs with the affine-basis disk cache off, and the phase prints
+the seconds the bases' build and verify take in it; then, with the cache
+on in a temporary directory (utils/diskcache.py), a second model's first
+call builds and stores every basis and a third model's first call must
+load every one, bit for bit, and build none.
 Then the multi-device product path (`parallel` phase,
 femo_alpha_tpu_torch/parallel/): two ranks on cuda:0 over gloo (NCCL takes
 one card per rank), a file:// rendezvous in a temporary directory, the
 kernel library built here before they start; each rank splits the
 128x32 headline (LibraryBench, MG), the 8x36 penalty wing (WingBench,
-band) and PlateSim 40x20 on the step MG cut to PARALLEL_SIM_STEPS steps
-with shard_model, runs a first and warm evaluate + backward, and returns
-its results, its launches, its all_reduce count and seconds and its peak
-memory; the ranks must agree bit for bit, match this process's one-rank
-run of the same models (J 1e-9, u 1e-8, dJ/dh 1e-6, the reference's
-bars), launch the fused operator and K2 in every rank and case, and hold
+band), PlateSim 40x20 on the step MG cut to PARALLEL_SIM_STEPS steps, the
+headline plate's modal analysis (`modal`: evaluate_modal with the modal
+phase's options, 6 modes by LOBPCG on the split V-cycle, and the backward
+of modal_eigenvalues' first mode) and the headline on the plain
+precond_factory shell_mg_precond_factory (`factory`) with shard_model,
+runs a first and warm call, and returns its results, its launches, its
+all_reduce count and seconds and its peak memory; the ranks must agree
+bit for bit, match this process's one-rank run of the same models (J
+1e-9, u 1e-8, dJ/dh 1e-6, the reference's bars; eigenvalues MODAL_BAR,
+their gradient 1e-6), launch the fused operator and K2 in every rank and
+case, and hold
 both kernels to their twins on their own cell range's tables and basis.
 Every path's kernel line gives each
 kernel's time beside its twin's, its bound and one PyTorch library call
@@ -187,12 +197,15 @@ nothing of JAX and takes no arguments.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -2632,8 +2645,6 @@ def phase_examples(ck):
     its shapes against their twins. Then the other studies through main() at the
     cuts of EXAMPLE_STUDIES, each with its route and launches."""
     import importlib
-    import shutil
-    import tempfile
 
     import numpy as np
     import scipy
@@ -3151,6 +3162,54 @@ def phase_mg_w(ck):
     return launches
 
 
+@contextlib.contextmanager
+def _timed_basis_builds():
+    """Time every affine basis built inside the block (the probe
+    assemblies of AffineDesignOperator and its verify) and every disk
+    cache store and load (utils/diskcache.py), each between two
+    synchronizes: {"builds", "s" (build + verify seconds), "verify_s",
+    "bytes" (of the bases built), "store_s", "loads" (those that found an
+    entry), "load_s"}."""
+    import torch
+
+    from femo_alpha_tpu_torch.assembly import affine
+    from femo_alpha_tpu_torch.utils import diskcache
+
+    cls = affine.AffineDesignOperator
+    orig = cls.__init__, cls.verify, diskcache.store, diskcache.load
+    acc = {"builds": 0, "build_s": 0.0, "verify_s": 0.0, "bytes": 0,
+           "store_s": 0.0, "loads": 0, "load_s": 0.0}
+
+    def timed(fn, key, count=None, hit=lambda r: True):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc[key] += time.perf_counter() - t
+            if count and hit(r):
+                acc[count] += 1
+            return r
+        return wrapper
+
+    build = timed(orig[0], "build_s", "builds")
+
+    def init(self, *a, **k):
+        build(self, *a, **k)
+        acc["bytes"] += self.basis.numel() * self.basis.element_size()
+
+    cls.__init__ = init
+    cls.verify = timed(orig[1], "verify_s")
+    diskcache.store = timed(orig[2], "store_s")
+    diskcache.load = timed(orig[3], "load_s", "loads",
+                           hit=lambda r: r is not None)
+    try:
+        yield acc
+    finally:
+        cls.__init__, cls.verify, diskcache.store, diskcache.load = orig
+        acc["s"] = acc["build_s"] + acc["verify_s"]
+
+
 def phase_scale(ck):
     """The north star's scale point on the card: LibraryBench at 512x128
     (988,806 dofs, 65,536 cells, a five-level MG), held against the
@@ -3181,7 +3240,12 @@ def phase_scale(ck):
     peak_setup_gb = torch.cuda.max_memory_allocated() / 1e9
     if b.device.type != "cuda":
         fail(f"scale: LibraryBench without device= runs on {b.device}")
-    out = b.timed_run(repeats=SCALE_REPEATS)
+    # the affine bases' build (probe assemblies and verify, fine operator
+    # and MG levels) inside the first call, with the disk cache off
+    env = {k: os.environ.pop(k, None) for k in ("FEMO_SETUP_CACHE",
+                                                "FEMO_SETUP_CACHE_DIR")}
+    with _timed_basis_builds() as basis:
+        out = b.timed_run(repeats=SCALE_REPEATS)
     launches = ck.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     timed = _timed_launches(out, "scale")
@@ -3210,7 +3274,56 @@ def phase_scale(ck):
         kcases.append(case)
         kerr["k2"], case = k2_case(ck, "k2", emf_basis, b.th0, (1, 3))
         kcases.append(case)
-        del Ae, emf_basis, x
+        del Ae, x
+    # the disk cache (utils/diskcache.py) on, in a temporary directory:
+    # a second model of the script stores every basis it builds, a third
+    # loads them, bit for bit. Skipped, and said so, where the temporary
+    # directory cannot hold the bases twice over
+    ck_before = ck.launch_counts()
+    cache = tempfile.TemporaryDirectory()
+    free = shutil.disk_usage(cache.name).free
+    cache_check = free >= 2 * basis["bytes"]
+    stored = cached = None
+    store_first_s = cached_first_s = float("nan")
+    same_basis = False
+    if cache_check:
+        os.environ.update(FEMO_SETUP_CACHE="1",
+                          FEMO_SETUP_CACHE_DIR=cache.name)
+        for k in ("store", "load"):
+            b2 = ex_million_dof_shell.build()["bench"]
+            with _timed_basis_builds() as acc:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                b2.forward_adjoint(b2.th0)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+            if k == "store":
+                stored, store_first_s = acc, first_s
+            else:
+                cached, cached_first_s = acc, first_s
+                same_basis = torch.equal(
+                    b2.pde.element_matrices_fn._aff.basis, emf_basis)
+            del b2
+        os.environ.pop("FEMO_SETUP_CACHE")
+        os.environ.pop("FEMO_SETUP_CACHE_DIR")
+    del emf_basis
+    os.environ.update({k: v for k, v in env.items() if v is not None})
+    cache.cleanup()
+    launches = {k: v + ck.launch_counts()[k] - ck_before[k]
+                for k, v in launches.items()}
+    if cache_check:
+        cache_fields = dict(
+            basis_store_s=f"{stored['store_s']:.3f}",
+            store_first_call_s=f"{store_first_s:.3f}",
+            cached_first_call_s=f"{cached_first_s:.3f}",
+            cached_basis_builds=cached["builds"],
+            cached_basis_loads=cached["loads"],
+            cached_basis_load_s=f"{cached['load_s']:.3f}",
+            cached_basis_bitwise=same_basis)
+    else:
+        cache_fields = dict(cache_check=(
+            f"skipped: {free / 1e9:.2f} GB free in the temporary directory"
+            f", {2 * basis['bytes'] / 1e9:.2f} GB needed"))
     say("scale", mesh="512x128", n_dofs=b.n_dofs, cells=b.model.nel,
         mg_levels=len(mg.levels), setup_s=f"{setup_s:.3f}",
         first_call_s=f"{out['compile_s']:.3f}",
@@ -3227,6 +3340,9 @@ def phase_scale(ck):
         assembly_ms=f"{1e3 * out['assembly_s']:.4f}",
         assembly_latency_ms=f"{1e3 * out['assembly_latency_s']:.4f}",
         assembly_mdof_s=f"{out['assembly_mdof_s']:.2f}",
+        basis_builds=basis["builds"], basis_build_s=f"{basis['s']:.3f}",
+        basis_verify_s=f"{basis['verify_s']:.3f}",
+        basis_gb=f"{basis['bytes'] / 1e9:.3f}", **cache_fields,
         peak_setup_gb=f"{peak_setup_gb:.3f}", peak_gb=f"{peak_gb:.3f}",
         launches_timed=json.dumps(timed), launches=json.dumps(launches),
         kernels_at_scale_shapes=json.dumps(kcases),
@@ -3248,6 +3364,14 @@ def phase_scale(ck):
         bar = K2_BAR["float64"] if k == "k2" else FUSED_BAR["float64"]
         if not err <= bar:
             fail(f"scale {k} at nc 65,536: rel err {err:.3e} > {bar}")
+    if cache_check and (stored["builds"] != basis["builds"]
+                        or cached["builds"] != 0
+                        or cached["loads"] != stored["builds"]
+                        or not same_basis):
+        fail(f"scale: with the disk cache on, the second model built "
+             f"{stored['builds']} of the first's {basis['builds']} bases; "
+             f"the third built {cached['builds']} and loaded "
+             f"{cached['loads']} (fine basis bit for bit: {same_basis})")
     return launches, kcases
 
 
@@ -4404,7 +4528,7 @@ def phase_f32(ck, slice_f64):
 # this many steps (each step solve's V-cycles reduce through the host)
 PARALLEL_RANKS = 2
 PARALLEL_SIM_STEPS = 2
-PARALLEL_KINDS = ("headline", "wing", "sim")
+PARALLEL_KINDS = ("headline", "wing", "sim", "modal", "factory")
 # WingBench's wing for the parallel phase: 8x36 (8,823 dofs, band), the
 # size class of the reference's split wing test. On the 18x66 wing the
 # split run and the one-rank run part by 1.9e-9 in J (measured on one
@@ -4413,30 +4537,59 @@ PARALLEL_KINDS = ("headline", "wing", "sim")
 # so two summation orders part at that floor (PERF.md)
 PARALLEL_WING = (8, 36)
 # the reference's bars of a split run against one device
-# (tests/test_product_sharding.py)
+# (tests/test_product_sharding.py); the modal case's eigenvalues (max
+# relative error over the modes) at the modal phase's bar
 PARALLEL_BARS = {"J": 1e-9, "u": 1e-8, "g": 1e-6}
+PARALLEL_MODAL_BARS = {"eig": MODAL_BAR, "g": 1e-6}
+# the modal case: phase_modal's options, and the first mode's gradient
+PARALLEL_MODAL = dict(n_modes=6, solver="lobpcg", tol=1e-8, maxiter=200,
+                      seed=0)
 
 
 def _parallel_model(kind, dev):
-    """(the object to split, its thickness, design -> (J, u, dJ/dh)) of
-    one parallel case, built on `dev` through the port's entry points."""
+    """(the object to split, its thickness, design -> {name: result}) of
+    one parallel case, built on `dev` through the port's entry points:
+    J, u and dJ/dh, or for `modal` the eigenvalues and the first one's
+    thickness gradient."""
     import torch
 
     from femo_alpha_tpu_torch.benchmarks import LibraryBench, WingBench
 
-    if kind == "headline":
+    if kind in ("headline", "factory", "modal"):
         b = LibraryBench(nx=128, ny=32, device=dev)
+    if kind == "factory":
+        # the plain precond_factory on the headline's hierarchy: CG at the
+        # headline's options, the state's ImplicitPDE rebuilt
+        from femo_alpha_tpu_torch.models.rm_shell.mg import \
+            shell_mg_precond_factory
 
+        st = b.model.fea.states["disp_solid"]
+        st.solver_opts = dict(st.pde.solver_opts, precond_factory=(
+            shell_mg_precond_factory(b.model.mg)))
+        b.model.fea._build_pde("disp_solid")
+        b.pde = st.pde
+    if kind in ("headline", "factory"):
         def run(th):
             r = b.forward_adjoint(th)
-            return r["J"], r["u"], r["grad"]
+            return {"J": r["J"], "u": r["u"], "g": r["grad"]}
+        return b.model, b.th0, run
+    if kind == "modal":
+        def run(th):
+            out = b.model.evaluate_modal(th, b.E, b.nu, b.rho,
+                                         **PARALLEL_MODAL)
+            th = th.detach().clone().requires_grad_(True)
+            lam1 = b.model.modal_eigenvalues(th, b.E, b.nu, b.rho,
+                                             n_modes=1, tol=1e-8)[0]
+            lam1.backward()
+            return {"eig": out.eigenvalues.detach(), "g": th.grad}
         return b.model, b.th0, run
     if kind == "wing":
         b = WingBench(*PARALLEL_WING, device=dev)
 
         def run(th):
             out, g = b.forward_adjoint(th)
-            return out.compliance.detach(), out.disp_solid.detach(), g
+            return {"J": out.compliance.detach(),
+                    "u": out.disp_solid.detach(), "g": g}
         return b.model, b.th0, run
     from femo_alpha_tpu_torch.mesh import createRectangleMesh
     from femo_alpha_tpu_torch.models.dynamic_rm_shell import PlateSim
@@ -4454,7 +4607,7 @@ def _parallel_model(kind, dev):
         wh = sim.simulate(th, f_hist)
         J = torch.sum(sim.strain_energy_history(wh, th))
         J.backward()
-        return J.detach(), wh[-1].detach(), th.grad
+        return {"J": J.detach(), "u": wh[-1].detach(), "g": th.grad}
     return sim, torch.full((sim.num_var,), 0.1, dtype=torch.float64,
                            device=dev), run
 
@@ -4508,7 +4661,7 @@ def parallel_rank(mesh, kinds):
         ck.reset_launch_counts()
         spec.reset_stats()
         t0 = time.perf_counter()
-        J, u, g = run(th0)
+        res = run(th0)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         first_ar = spec.stats()
@@ -4520,7 +4673,7 @@ def parallel_rank(mesh, kinds):
         stats = spec.stats()
         peak = torch.cuda.max_memory_allocated(dev)
         out[kind] = {
-            "J": float(J), "u": u.cpu().numpy(), "g": g.cpu().numpy(),
+            "res": {k: v.cpu().numpy() for k, v in res.items()},
             "launches": launches, "first_s": first_s, "warm_s": warm_s,
             "all_reduce": stats["all_reduce"] - first_ar["all_reduce"],
             "all_reduce_s": stats["all_reduce_s"] - first_ar["all_reduce_s"],
@@ -4548,8 +4701,11 @@ def phase_parallel(ck):
     one = {}
     for kind in PARALLEL_KINDS:
         target, th0, run = _parallel_model(kind, torch.device("cuda", 0))
-        J, u, g = run(th0)
-        one[kind] = (float(J), u.cpu().numpy(), g.cpu().numpy())
+        t0 = time.perf_counter()
+        one[kind] = {k: v.cpu().numpy() for k, v in run(th0).items()}
+        torch.cuda.synchronize()
+        say("parallel", case=kind, one_rank_first_s=
+            f"{time.perf_counter() - t0:.3f}")
         del target, run
     gc.collect()
     torch.cuda.empty_cache()
@@ -4567,12 +4723,14 @@ def phase_parallel(ck):
     total = {k: 0 for k in ck.launch_counts()}
     for kind in PARALLEL_KINDS:
         rs = [r[kind] for r in ranks]
-        J1, u1, g1 = one[kind]
-        same = all(rs[0]["J"] == r["J"] and np.array_equal(rs[0]["u"], r["u"])
-                   and np.array_equal(rs[0]["g"], r["g"]) for r in rs[1:])
-        errs = {"J": abs(rs[0]["J"] - J1) / abs(J1),
-                "u": np.linalg.norm(rs[0]["u"] - u1) / np.linalg.norm(u1),
-                "g": np.linalg.norm(rs[0]["g"] - g1) / np.linalg.norm(g1)}
+        got, want = rs[0]["res"], one[kind]
+        bars = PARALLEL_MODAL_BARS if kind == "modal" else PARALLEL_BARS
+        same = all(np.array_equal(got[k], r["res"][k])
+                   for r in rs[1:] for k in got)
+        errs = {k: float(np.max(np.abs(got[k] / want[k] - 1.0)))
+                if k == "eig" else
+                float(np.linalg.norm(got[k] - want[k]) / np.linalg.norm(want[k]))
+                for k in bars}
         for i, r in enumerate(rs):
             say("parallel", case=kind, rank=i, cells=r["cells"],
                 first_s=f"{r['first_s']:.3f}", warm_s=f"{r['warm_s']:.3f}",
@@ -4583,12 +4741,15 @@ def phase_parallel(ck):
                 k2_twin_err=f"{r['k2_err']:.2e}",
                 fused_twin_err=f"{r['fused_err']:.2e}", k2=r["k2"],
                 fused=r["fused"])
+        head = "eig" if kind == "modal" else "J"
         say("parallel", case=kind, ranks=len(rs), bitwise_ranks=same,
-            J=f"{rs[0]['J']:.12e}", J_one_rank=f"{J1:.12e}",
+            **{head: json.dumps([f"{v:.12e}" for v in np.atleast_1d(got[head])]),
+               f"{head}_one_rank": json.dumps(
+                   [f"{v:.12e}" for v in np.atleast_1d(want[head])])},
             **{f"{k}_err_vs_one_rank": f"{v:.3e}" for k, v in errs.items()})
         if not same:
             fail(f"parallel {kind}: the ranks' results differ")
-        for k, bar in PARALLEL_BARS.items():
+        for k, bar in bars.items():
             if not errs[k] < bar:
                 fail(f"parallel {kind}: {k} {errs[k]:.3e} from the one-rank "
                      f"run (bar {bar:.0e})")
@@ -4603,8 +4764,8 @@ def phase_parallel(ck):
                      f"{r['fused_err']:.2e}")
             for k in total:
                 total[k] += r["launches"][k]
-        if not all(np.isfinite(r["u"]).all() and np.isfinite(r["g"]).all()
-                   for r in rs):
+        if not all(np.isfinite(v).all() for r in rs
+                   for v in r["res"].values()):
             fail(f"parallel {kind}: non-finite results")
     say("parallel", ranks=PARALLEL_RANKS, backend="gloo",
         spawn_s=f"{spawn_s:.2f}", launches=json.dumps(total),

@@ -49,7 +49,10 @@ the JAX package split the cell-indexed pieces over the ranks:
 `_linearize` (the preconditioner's split state). The residual of the
 Newton loop and the parameter vjp of the adjoint are split the same way:
 each rank assembles its own cells (the facet and extra terms on rank 0)
-and one all_reduce sums them.
+and one all_reduce sums them. User pieces without a split hook run whole
+on every rank (parallel/product.py::_shard_implicit_pde): a plain factory
+is called as it is, a split-protocol preconditioner without `shard_state`
+is handed the whole fine block, gathered from the ranks' blocks.
 """
 
 from __future__ import annotations
@@ -95,8 +98,10 @@ class ImplicitPDE:
         self._pc = pf if split else None
         self._pf = None if split else pf
         self.last_info = {}
-        # parallel/product.py::shard_model: the cell split (None: whole)
+        # parallel/product.py::shard_model: the cell split (None: whole),
+        # and which user pieces have no split hook and so run whole
         self.shard_spec = None
+        self._emf_whole = self._pc_whole = False
 
     # -------------------------------------------------- raw pieces
     def residual(self, u, params):
@@ -241,17 +246,21 @@ class ImplicitPDE:
         emf_basis, pc_aux, facet_ops = aux
         ops_Ae = self._assemble_ops(u, params, emf_basis=emf_basis,
                                     facet_ops=facet_ops, direct=True)
+        spec = self.shard_spec
         if self._pf is not None:
-            if self.shard_spec is not None:
-                raise NotImplementedError(
-                    "ImplicitPDE: a plain precond_factory under shard_model "
-                    "(ROADMAP.md, Queue 1)")
+            # under shard_model: split by its shard_state, or called whole
+            # on every rank with the replicated (u, params)
             M_state = self._pf(u, params)
         elif self._pc is not None:
-            # under shard_model the split-protocol preconditioner was
-            # split once (its shard_state): its state is built on this
-            # rank's cells of every level, reduced where it is global
-            M_state = self._pc.setup_state(u, params, ops_Ae, pc_aux)
+            # under shard_model a split-protocol preconditioner was split
+            # once (its shard_state): its state is built on this rank's
+            # cells of every level, reduced where it is global. One
+            # without shard_state gets the whole fine block, gathered
+            pc_ops = ops_Ae
+            if spec is not None and self._pc_whole:
+                pc_ops = [spec.gather_cells(ops_Ae[0], self._op_specs[0])] \
+                    + list(ops_Ae[1:])
+            M_state = self._pc.setup_state(u, params, pc_ops, pc_aux)
         else:
             M_state = None
         return ops_Ae, M_state

@@ -16,8 +16,10 @@ by an f32 form, combined in f64, then rounded) or `storage="f32"` (the
 fine operator's basis rounded to f32, selected on the model by
 FEMO_OP_STORAGE=f32), whose combine is K2's f32 build and whose Ae then
 runs the fused operator's f32 build. The JAX package's float-float
-storage ("df") and its disk cache exist for the TPU's lack of f64 and for
-its compile times, and are not carried over.
+storage ("df") exists for the TPU's lack of f64 and is not carried over.
+With FEMO_SETUP_CACHE=1, CachedAffineAssembler stores each basis it builds
+on disk and loads one that an earlier process built from the same inputs
+(utils/diskcache.py).
 
 The design gradient of a product A(theta) x is the closed-form
 `vjp_theta`; `AffineOperator` / `AffineApply` make such a product (one
@@ -87,11 +89,18 @@ class AffineDesignOperator:
     def astype(self, dtype):
         """A view of this operator with the basis cast to `dtype` (e.g. an
         f32 copy feeding a preconditioner hierarchy)."""
+        return AffineDesignOperator.from_basis(
+            self.form, self.key, self.powers, self.storage, self.cells,
+            self.basis.to(dtype))
+
+    @staticmethod
+    def from_basis(form, key, powers, storage, cells, basis):
+        """An operator over a basis built already (no probe assembly)."""
         out = object.__new__(AffineDesignOperator)
-        out.form, out.key, out.powers = self.form, self.key, self.powers
-        out.storage, out.cells = self.storage, self.cells
-        out.basis = self.basis.to(dtype)
-        out.nc = self.nc
+        out.form, out.key, out.powers = form, key, tuple(powers)
+        out.storage, out.cells = storage, cells
+        out.basis = basis
+        out.nc = form.space.mesh.n_cells
         return out
 
     def element_matrices(self, theta, basis=None):
@@ -220,14 +229,60 @@ class CachedAffineAssembler:
 
             u0 = torch.zeros(self.form.space.n_dofs, dtype=theta.dtype,
                              device=theta.device)
-            self._aff = AffineDesignOperator(
-                self.form, u0, params_of, key=self.key, powers=self.powers,
-                probe_scale=ps, chunk=self.chunk, dtype=self.dtype,
-                storage=self.storage, cells=self._range())
-            if self.verify:
-                self._aff.verify(theta, u0, params_of, chunk=self.chunk)
+            # utils/diskcache.py (FEMO_SETUP_CACHE=1): a basis an earlier
+            # process built from the same inputs, bit for bit
+            dk = self._disk_key(relevant, ps, u0, params_of)
+            self._aff = self._disk_load(dk, theta.device)
+            if self._aff is None:
+                self._aff = AffineDesignOperator(
+                    self.form, u0, params_of, key=self.key,
+                    powers=self.powers, probe_scale=ps, chunk=self.chunk,
+                    dtype=self.dtype, storage=self.storage,
+                    cells=self._range())
+                if self.verify:
+                    self._aff.verify(theta, u0, params_of, chunk=self.chunk)
+                if dk is not None:
+                    from ..utils import diskcache
+
+                    diskcache.store("affine", dk, [self._aff.basis])
             self._cache_key = ck
         return self._aff.basis
+
+    def _disk_key(self, relevant, ps, u0, params_of):
+        """The disk cache's key of the basis these inputs build (None with
+        the cache off): see utils/diskcache.py for what it covers."""
+        from ..utils import diskcache
+
+        if not diskcache.enabled():
+            return None
+        form, space = self.form, self.form.space
+        nc = space.dofmap.shape[0]
+        c0, c1 = self._range() or (0, nc)
+        probe = params_of(torch.full((nc,), float(ps), dtype=u0.dtype,
+                                     device=u0.device))
+        sample = [element_matrices(form, u0, probe, chunk=self.chunk,
+                                   cells=cells)
+                  for cells in ((c0, c0 + 1), (c1 - 1, c1))]
+        return diskcache.key(
+            form._coords_np, np.asarray(space.dofmap), space.n_dofs,
+            form.energy_kernel is None, sorted(form.param_specs),
+            str(form.dtype), *[form.cell_consts[k]
+                               for k in sorted(form.cell_consts)],
+            *sample, *[relevant[k] for k in sorted(relevant)], float(ps),
+            self.key, self.powers, self.storage, str(self.dtype),
+            self.verify, (c0, c1), u0.device.type)
+
+    def _disk_load(self, dk, device):
+        """The cached basis of key dk as an AffineDesignOperator on
+        `device`, or None."""
+        from ..utils import diskcache
+
+        arrs = None if dk is None else diskcache.load("affine", dk)
+        if arrs is None:
+            return None
+        return AffineDesignOperator.from_basis(
+            self.form, self.key, self.powers, self.storage, self._range(),
+            torch.as_tensor(arrs[0], device=device))
 
     def combine(self, theta, basis):
         """Affine combine with an explicit basis -> (nd, nd, nc) (the

@@ -173,14 +173,29 @@ def shell_mg_precond_factory(mg, dtype=None):
     returns the V-cycle application. dtype: the hierarchy's precision
     (None: f64, the default; torch.float32 with a hierarchy built by
     build_shell_mg(dtype=torch.float32): the vector is cast to f32 and
-    back around each cycle)."""
+    back around each cycle). Under shard_model its `shard_state` splits
+    the hierarchy: each setup then builds every level, the fine one
+    included, on the rank's cells."""
+    return _ShellMGFactory(mg, dtype)
 
-    def factory(u, params):
-        keys = ("thickness", "E", "nu", "uhat", "F_solid")
-        state = mg.setup({k: params[k] for k in keys}, dtype=dtype)
-        return lambda v: _cycle_in(mg, state, v)
 
-    return factory
+class _ShellMGFactory:
+    _KEYS = ("thickness", "E", "nu", "uhat", "F_solid")
+
+    def __init__(self, mg, dtype):
+        self.mg, self.dtype = mg, dtype
+
+    def __call__(self, u, params):
+        state = self.mg.setup({k: params[k] for k in self._KEYS},
+                              dtype=self.dtype)
+        return lambda v: _cycle_in(self.mg, state, v)
+
+    def shard_state(self, spec):
+        """Split the hierarchy over the ranks of a CellShardSpec
+        (parallel/product.py::shard_mg_state), as ShellMGPrecond does."""
+        from ...parallel.product import shard_mg_state
+
+        shard_mg_state(self.mg, spec)
 
 
 def _cycle_in(mg, state, v):

@@ -106,7 +106,7 @@ from ...fea import FEA, FEAModel
 from ...fea.model import VariableGroup
 from ...solvers.amg import AMGPrecondFactory
 from ...solvers.band import band_precond_factory
-from ...solvers.direct import dense_from_elements
+from ...solvers.linear import dense_from_blocks
 from ...solvers.eigen import dense_generalized_eigh, lobpcg
 from ...utils.logging import log
 from .mg import ShellMGPrecond, build_shell_mg, strong_bc_dofs
@@ -130,8 +130,8 @@ def _op_storage():
 
 def _not_ported(what):
     return NotImplementedError(
-        f"RMShellModel: {what} is not ported to femo_alpha_tpu_torch yet "
-        "(see ROADMAP.md, Queue 1)")
+        f"RMShellModel: {what} is not ported to femo_alpha_tpu_torch: the "
+        "port replaces it (see ROADMAP.md, \"Replace, do not port\")")
 
 
 class AggregatedStressModel:
@@ -503,25 +503,33 @@ class RMShellModel:
         """(inertia form with the J(uhat) pullback, (u, mp) -> its
         lane-major element matrices), made at first use: an affine
         assembler in thickness with one power (one K2 combine) for
-        element-wise thickness, its direct assembly for nodal thickness."""
+        element-wise thickness, its direct assembly for nodal thickness.
+        Under shard_model the assembler builds and combines this rank's
+        cells only (its basis slice, theta's slice)."""
         if self._modal_m is None:
             mform = self.shell_pde.inertia_form(with_uhat=True)
             asm = CachedAffineAssembler(mform, powers=(1,), ignore_keys=())
             self._modal_m = (mform, asm if self.element_wise_material
-                             else asm.direct)
-        return self._modal_m
+                             else asm.direct, asm)
+        spec = self.fea.states["disp_solid"].pde.shard_spec
+        mform, _, asm = self._modal_m
+        if spec is not None and asm.cells is None:
+            asm.shard(spec.cells_of(mform.space))
+        return self._modal_m[:2]
+
+    def _modal_space(self):
+        """The space the modal operators run on: the mixed space, or this
+        rank's cells of it (a spaces.CellRange) under shard_model."""
+        spec = self.fea.states["disp_solid"].pde.shard_spec
+        W = self.shell_pde.W
+        return W if spec is None else spec.cells_of(W)
 
     def _modal_modes(self, thickness, E, nu, density, k, tol, maxiter, seed,
                      solver, node_disp=None):
         """The eigensolve at fixed inputs: (modes X (n, k), res_norms,
         iterations), no autograd graph."""
-        pde = self.shell_pde
         ipde = self.fea.states["disp_solid"].pde
-        if ipde.shard_spec is not None:
-            raise NotImplementedError(
-                "RMShellModel: modal analysis under shard_model (ROADMAP.md, "
-                "Queue 1)")
-        W = pde.W
+        W = self._modal_space()
         n = W.n_dofs
         with torch.no_grad():
             p, mp = self._modal_fe_params(node_disp)(thickness, E, nu,
@@ -542,13 +550,12 @@ class RMShellModel:
                 solver == "auto" and (
                     n <= 6000 or ipde.solver_opts.get("method") == "dense"))
             if use_dense:
+                # K and M assembled dense: under shard_model each from the
+                # rank's cells, summed by one all_reduce (the facet blocks
+                # of K added after it)
                 ops = ipde._assemble_ops(u0, p)
-                Kd = None
-                for Ae, spec in zip(ops, ipde._op_specs):
-                    Kb = dense_from_elements(Ae.permute(2, 0, 1),
-                                             spec.dofmap, n)
-                    Kd = Kb if Kd is None else Kd + Kb
-                Md = dense_from_elements(Me.permute(2, 0, 1), W.dofmap, n)
+                Kd = dense_from_blocks(list(zip(ops, ipde._op_specs)), n)
+                Md = dense_from_blocks([(Me, W)], n)
                 ix = free_idx
                 _, Phif = dense_generalized_eigh(Kd[ix][:, ix],
                                                  Md[ix][:, ix], k)
@@ -588,19 +595,39 @@ class RMShellModel:
         """Rayleigh quotients lam_i = phi_i^T K(p) phi_i / phi_i^T M(p)
         phi_i at FIXED modes X, differentiable in the four inputs: the
         numerator by one residual assembly per mode (zero load, facet
-        forms included), the denominator as twice the inertia energy."""
+        forms included), the denominator as twice the inertia energy.
+        Under shard_model each rank assembles its own cells (rank 0 adds
+        the facet terms) and one all_reduce sums the numerators and
+        denominators; the inputs enter through grad_all_reduce, so that
+        their gradient is summed over the ranks once."""
+        from ...parallel.product import grad_all_reduce, sum_over_ranks
+
         ipde = self.fea.states["disp_solid"].pde
+        spec = ipde.shard_spec
         mform, _ = self._modal_mass()
+        if spec is not None:
+            thickness, E, nu, density = (
+                grad_all_reduce(self._tensor(v), spec)
+                for v in (thickness, E, nu, density))
         p, mp = self._modal_fe_params(node_disp)(thickness, E, nu, density)
-        lams = []
+        cells = self._modal_space().cells if spec is not None else None
+        nums, dens = [], []
         for i in range(X.shape[1]):
             phi = X[:, i]
-            r = assemble_residual(ipde.form, phi, p)
-            for ff in ipde.facet_forms:
-                r = r + ff.assemble_residual(phi, p)
-            lams.append(torch.dot(phi, r)
-                        / (2.0 * assemble_scalar(mform, phi, mp)))
-        return torch.stack(lams)
+            if spec is None:
+                r = assemble_residual(ipde.form, phi, p)
+                for ff in ipde.facet_forms:
+                    r = r + ff.assemble_residual(phi, p)
+                m = assemble_scalar(mform, phi, mp)
+            else:
+                r = ipde._rank_residual(phi, p)
+                m = mform.cell_values(mform.energy_kernel, phi, mp,
+                                      cells=cells).sum()
+            nums.append(torch.dot(phi, r))
+            dens.append(2.0 * m)
+        k = X.shape[1]
+        both = sum_over_ranks(torch.stack(nums + dens), spec)
+        return both[:k] / both[k:]
 
     def modal_eigenvalues(self, thickness, E, nu, density, n_modes=6,
                           node_disp=None, **opts):

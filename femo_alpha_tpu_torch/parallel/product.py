@@ -169,6 +169,15 @@ class CellShardSpec:
 
         return mv
 
+    def gather_cells(self, a, view):
+        """A block on this rank's cells of `view` (cell axis last) as the
+        whole array on every rank: placed at its range in zeros, then one
+        all_reduce (exact: every entry is one rank's value plus zeros)."""
+        nc = view.space.dofmap.shape[0]
+        whole = a.new_zeros(a.shape[:-1] + (nc,))
+        whole[..., view.cells[0]:view.cells[1]] = a
+        return self.all_reduce(whole)
+
     def stats(self):
         return {"all_reduce": self.n_all_reduce,
                 "all_reduce_s": self.all_reduce_s}
@@ -188,6 +197,28 @@ class _GradAllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.spec.all_reduce(g.contiguous().clone()), None
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """Forward: the sum over the ranks; the backward passes the gradient
+    to this rank's share as it is."""
+
+    @staticmethod
+    def forward(ctx, x, spec):
+        return spec.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over_ranks(x, spec):
+    """The sum of every rank's x, differentiable: each rank's share gets
+    the gradient of the sum unchanged, so a design that entered the share
+    through grad_all_reduce gets its gradient summed once."""
+    if spec is None or spec.n_devices == 1:
+        return x
+    return _SumOverRanks.apply(x, spec)
 
 
 def grad_all_reduce(x, spec):
@@ -214,16 +245,18 @@ def _cell_axis_cut(a, view):
 
 def shard_aux(pde, aux):
     """A prepared aux (cell basis, preconditioner aux, facet blocks) with
-    each cell-indexed basis on this rank's range: the bases the port
-    prepares under a split are built on the range already and pass; a
-    whole one is cut. Facet blocks (O(boundary)) stay replicated."""
+    the cell-indexed bases of the pieces that split on this rank's range:
+    the bases the port prepares under a split are built on the range
+    already and pass; a whole one is cut. A piece that runs whole (no
+    `shard` / `shard_state` hook) keeps its aux whole. Facet blocks
+    (O(boundary)) stay replicated."""
     spec = getattr(pde, "shard_spec", None)
     if spec is None or aux is None:
         return aux
     emb, pca, fops = aux
-    if emb is not None:
+    if emb is not None and not pde._emf_whole:
         emb = _cell_axis_cut(emb, spec.cells_of(pde.form.space))
-    if pca:
+    if pca and pde._pc is not None and not pde._pc_whole:
         levels = getattr(getattr(pde._pc, "mg", None), "levels", None)
         pca = tuple(b if b is None or levels is None else
                     _cell_axis_cut(b, spec.cells_of(levels[k]["space"]))
@@ -254,28 +287,26 @@ def shard_mg_state(mg, spec):
 
 def _shard_implicit_pde(pde, spec):
     """Install the split on one ImplicitPDE: its cell block on the rank's
-    range (the op spec, the element-matrix function), its split-protocol
-    preconditioner; raises NotImplementedError for what cannot split."""
-    view = spec.cells_of(pde.form.space)
+    range (the op spec), and each user piece split by its own hook where
+    it has one: the element-matrix function's `shard(view)`, the
+    preconditioner's or the plain factory's `shard_state(spec)`. A piece
+    without a hook runs whole on every rank, as under the JAX package's
+    GSPMD, and does not split its work: an element-matrix function's
+    whole blocks are cut to the rank's cells (shard_ops), a plain factory
+    is called with the replicated (u, params) at each linearization, and a
+    split-protocol preconditioner is handed the whole fine block,
+    gathered from the ranks' blocks once per linearization
+    (ImplicitPDE._linearize)."""
     fn = pde.element_matrices_fn
-    if fn is not None and not hasattr(fn, "shard"):
-        raise NotImplementedError(
-            f"shard_model: element_matrices_fn {type(fn).__name__} has no "
-            "cell split (ROADMAP.md, Queue 1)")
-    if pde._pf is not None:
-        raise NotImplementedError(
-            "shard_model: a plain precond_factory (set up whole at each "
-            "linearization) has no cell split; use a split-protocol "
-            "preconditioner (ROADMAP.md, Queue 1)")
-    if pde._pc is not None and not hasattr(pde._pc, "shard_state"):
-        raise NotImplementedError(
-            f"shard_model: preconditioner {type(pde._pc).__name__} has no "
-            "cell split (ROADMAP.md, Queue 1)")
-    if fn is not None:
-        fn.shard(view)
-    if pde._pc is not None:
-        pde._pc.shard_state(spec)
-    pde._op_specs[0] = view
+    pde._emf_whole = fn is not None and not hasattr(fn, "shard")
+    pde._pc_whole = pde._pc is not None and not hasattr(pde._pc,
+                                                        "shard_state")
+    if fn is not None and not pde._emf_whole:
+        fn.shard(spec.cells_of(pde.form.space))
+    for pc in (pde._pc, pde._pf):
+        if hasattr(pc, "shard_state"):
+            pc.shard_state(spec)
+    pde._op_specs[0] = spec.cells_of(pde.form.space)
     pde.shard_spec = spec
 
 

@@ -571,16 +571,14 @@ class GeometricMG:
         each level's Ae (its assembler `asm`, or the caller's Ae0 on the
         fine level), smoother blocks and operator, and sums the global
         pieces (smoother blocks, the coarse matrix) over the ranks; the
-        transfers, smoother inverses and coarse inverse are replicated."""
-        for k, lev in enumerate(self.levels):
+        transfers, smoother inverses and coarse inverse are replicated. A
+        level with a bare `make_Ae` and no `asm` does not split its
+        assembly: its Ae is built whole on every rank and cut to the
+        rank's cells."""
+        for lev in self.levels:
             view = spec.cells_of(lev["space"])
-            asm = lev.get("asm")
-            if asm is not None:
-                asm.shard(view)
-            elif k > 0 or lev.get("make_Ae") is not None:
-                raise NotImplementedError(
-                    f"GeometricMG.shard: level {k} has no assembler that "
-                    "can split (ROADMAP.md, Queue 1)")
+            if lev.get("asm") is not None:
+                lev["asm"].shard(view)
             lev["cells"] = view
         self.spec = spec
 
@@ -603,17 +601,22 @@ class GeometricMG:
                           and v.is_floating_point() else v)
                       for k, v in params.items()}
             Ae0 = None if Ae0 is None else Ae0.to(dtype).contiguous()
+        if self.spec is not None:
+            from ..parallel.product import _cell_axis_cut
         state = {"Ae": [], "matvec": [], "free": [], "blocks": [],
                  "lmax": [], "space": []}
         p = params
         for k, lev in enumerate(self.levels):
             pk = p if bases is None else {**p, "_affine_basis": bases[k]}
             Ae = Ae0 if (k == 0 and Ae0 is not None) else lev["make_Ae"](pk)
+            # the level's space, or this rank's cells of it under a split
+            W = lev["cells"] if self.spec is not None else lev["space"]
+            if self.spec is not None:
+                # built on the range already, or whole (a bare make_Ae)
+                Ae = _cell_axis_cut(Ae, W)
             state["Ae"].append(Ae)
             free_k = _free_in(lev, Ae.dtype)
             state["free"].append(free_k)
-            # the level's space, or this rank's cells of it under a split
-            W = lev["cells"] if self.spec is not None else lev["space"]
             state["space"].append(W)
             if k < len(self.levels) - 1:
                 sm = self._smoother_arrays(Ae, W, free_k)

@@ -17,6 +17,14 @@ def inputs_model(nel, nn, load, seed=11):
     return (f, th, np.full(nel, 4.32e8), np.zeros(nel), np.full(nel, 100.0))
 
 
+def inputs_modal(nel, seed=3):
+    """tests/test_modal.py::_setup's material, density as a field."""
+    rng = np.random.default_rng(seed)
+    th = 0.02 + 0.01 * rng.random(nel)
+    E = 7.0e10 * (1.0 + 0.1 * rng.random(nel))
+    return th, E, np.full(nel, 0.3), np.full(nel, 2700.0)
+
+
 def inputs_sim(num_var, time_levels, nf, seed=12):
     rng = np.random.default_rng(seed)
     f_hist = np.zeros((time_levels, nf))
@@ -230,27 +238,206 @@ def operator_case(mesh):
             "cells": view.cells, "all_reduce": spec.n_all_reduce}
 
 
-def unsupported_case(mesh):
-    """shard_model on a plain-factory preconditioner raises
-    NotImplementedError (the message)."""
+def _bc(x):
+    return x[:, 0] < 1e-12
+
+
+def _plate_model(nx, ny, size=(10.0, 2.0), **kw):
     from femo_alpha_tpu_torch.mesh import createRectangleMesh
+    from femo_alpha_tpu_torch.models import RMShellModel
+
+    fe = createRectangleMesh(nx, ny, (0, 0), size, "quad", gdim=3)
+    return RMShellModel(fe, shell_bc_func=_bc, element_wise_material=True,
+                        PENALTY_BC=False, device="cpu", **kw)
+
+
+def _split(model, mesh, split):
+    """shard_model(model, mesh) when split; the state's ImplicitPDE and
+    its CellShardSpec (None unsplit)."""
+    if split:
+        from femo_alpha_tpu_torch.parallel import shard_model
+
+        shard_model(model, mesh)
+    pde = model.fea.states["disp_solid"].pde
+    return pde, pde.shard_spec
+
+
+def modal_case(mesh, kind, split=True):
+    """RMShellModel.evaluate_modal on a split model: kind 'modal8' (the 8x4
+    plate 2 x 1 of tests/test_modal.py, seed 3: the dense route's 5
+    modes, modal_eigenvalues' first-mode gradient in the four inputs and
+    its memo, LOBPCG's 4 modes at tol 1e-10 on the dense solve's Cholesky)
+    or 'modal64' (the 64x16 MG plate, LOBPCG on the V-cycle, 3 modes)."""
+    if kind == "modal8":
+        model = _plate_model(8, 4, size=(2.0, 1.0))
+        args = inputs_modal(model.nel)
+    else:
+        model = _plate_model(64, 16)
+        args = inputs_model(model.nel, model.nn, 2.0)[1:]
+    pde, spec = _split(model, mesh, split)
+    res = {}
+    if kind == "modal8":
+        dense = model.evaluate_modal(*args, n_modes=5, solver="dense")
+        res["dense"] = dense.eigenvalues.detach().numpy().copy()
+        res["modes_extracted"] = dense.modes_extracted.numpy().copy()
+        leaves = [torch.tensor(a, requires_grad=True) for a in args]
+        lam = model.modal_eigenvalues(*leaves, n_modes=1)[0]
+        lam.backward()
+        res["grads"] = [t.grad.numpy().copy() for t in leaves]
+        n_cached = len(model._modal_modes_cache)
+        again = model.modal_eigenvalues(*args, n_modes=1)
+        res["memo"] = (len(model._modal_modes_cache) == n_cached
+                       and float(again[0]) == float(lam.detach()))
+        kw = dict(n_modes=4, solver="lobpcg", tol=1e-10, maxiter=100,
+                  seed=0)
+    else:
+        kw = dict(n_modes=3, solver="lobpcg", tol=1e-8, maxiter=200, seed=0)
+    lob = model.evaluate_modal(*args, **kw)
+    res.update(lobpcg=lob.eigenvalues.detach().numpy().copy(),
+               iterations=lob.iterations,
+               res_norms=lob.res_norms.numpy().copy(),
+               route=_route(pde))
+    if spec is not None:
+        res["all_reduce"] = spec.n_all_reduce
+        res["held"] = {"M": (model._modal_m[2]._aff.basis.shape[-1],
+                             model.nel),
+                       **_held_cells(pde)}
+    return res
+
+
+def factory_case(mesh, split=True):
+    """The plain precond_factory shell_mg_precond_factory on the 32x8
+    StructuredQuadMesh of tests/test_torch_api.py (CG at 1e-11, coarsest
+    64 cells, the state's ImplicitPDE rebuilt by FEA._build_pde), split
+    after the rebuild: the state, the CG iterations, the factory's calls
+    (its hierarchy set up once per linearization) and, split, each
+    level's cells in the state it built."""
+    from femo_alpha_tpu_torch.mesh import StructuredQuadMesh
     from femo_alpha_tpu_torch.models import RMShellModel
     from femo_alpha_tpu_torch.models.rm_shell.mg import (
         build_shell_mg,
         shell_mg_precond_factory,
     )
-    from femo_alpha_tpu_torch.parallel import shard_model
 
-    fe = createRectangleMesh(16, 4, (0, 0), (10.0, 2.0), "quad", gdim=3)
-    model = RMShellModel(fe, shell_bc_func=lambda x: x[:, 0] < 1e-12,
-                         element_wise_material=True, PENALTY_BC=False,
-                         device="cpu", solver_opts={"method": "cg"})
-    mg = build_shell_mg(model.shell_pde, lambda x: x[:, 0] < 1e-12,
-                        coarsest_cells=4, device="cpu")
+    m = StructuredQuadMesh(32, 8, (0, 0), (10.0, 2.0), gdim=3)
+    model = RMShellModel(m, shell_bc_func=_bc, element_wise_material=True,
+                         PENALTY_BC=False, device="cpu")
+    mg = build_shell_mg(model.shell_pde, _bc, coarsest_cells=64,
+                        device="cpu")
+    model.fea.states["disp_solid"].solver_opts = {
+        "method": "cg", "tol": 1e-11,
+        "precond_factory": shell_mg_precond_factory(mg)}
+    model.fea._build_pde("disp_solid")
+    calls, level_cells = [], []
+    setup = mg.setup
+
+    def counted(*a, **k):
+        state = setup(*a, **k)
+        calls.append(1)
+        level_cells.append([Ae.shape[-1] for Ae in state["Ae"]])
+        return state
+
+    mg.setup = counted
+    pde, spec = _split(model, mesh, split)
+    nel, nn = m.n_cells, m.n_nodes
+    f = np.zeros((nn, 3))
+    f[:, 2] = 2.0
+    th = torch.full((nel,), 0.2, dtype=torch.float64, requires_grad=True)
+    out = model.evaluate(f, th, np.full(nel, 4.32e8), np.zeros(nel),
+                         np.ones(nel))
+    u = out.disp_solid.detach().numpy().copy()
+    out.compliance.backward()
+    return {"u": u, "g": th.grad.numpy().copy(),
+            "iters": [pde.last_info["forward"]["iters"],
+                      pde.last_info["adjoint"]["iters"]],
+            "calls": len(calls), "level_cells": level_cells,
+            "level_nc": [lev["space"].dofmap.shape[0] for lev in mg.levels],
+            "plain": pde._pc is None and pde._pf is not None,
+            "all_reduce": None if spec is None else spec.n_all_reduce}
+
+
+class WholeJacobi:
+    """A user's split-protocol preconditioner without shard_state: point
+    Jacobi from the assembled diagonal of the whole fine block (which it
+    records the cell count of)."""
+
+    def __init__(self, space, free):
+        self.space, self.free, self.seen = space, free, []
+
+    def prepare(self, params, grad_keys=frozenset()):
+        return ()
+
+    def setup_state(self, u, params, ops_Ae, aux):
+        Ae = ops_Ae[0]
+        self.seen.append(Ae.shape[-1])
+        d = self.space.scatter_add(torch.diagonal(Ae, dim1=0, dim2=1))
+        d = torch.where(d != 0.0, d, torch.ones_like(d))
+        return self.free / d + (1.0 - self.free)
+
+    def apply_state(self, state, v):
+        return state * v
+
+
+def pieces_case(mesh, kind, split=True):
+    """User-built pieces under shard_model on the 16x4 plate (CG at 1e-12):
+    kind 'emf' (an element_matrices_fn without .shard, a whole jacfwd
+    assembly; point Jacobi), 'mg_level' (ShellMGPrecond over build_shell_mg
+    with coarsest 4 cells, its level 1 rebuilt as a bare make_Ae of a whole
+    direct assembly) or 'pc' (WholeJacobi, no shard_state): compliance,
+    state, d compliance / d thickness, CG iterations and the cell counts
+    each piece saw."""
+    from femo_alpha_tpu_torch.assembly.affine import CachedAffineAssembler
+    from femo_alpha_tpu_torch.assembly.assemble import element_matrices
+    from femo_alpha_tpu_torch.mesh import createRectangleMesh
+    from femo_alpha_tpu_torch.models.rm_shell.mg import (
+        ShellMGPrecond,
+        build_shell_mg,
+    )
+    from femo_alpha_tpu_torch.models.rm_shell.pde import RMShellPDE
+
+    opts = {"method": "cg", "tol": 1e-12, "maxiter": 4000}
+    seen = []
+    if kind == "mg_level":
+        fe = createRectangleMesh(16, 4, (0, 0), (10.0, 2.0), "quad", gdim=3)
+        mg = build_shell_mg(RMShellPDE(fe, element_wise_material=True,
+                                       device="cpu"), _bc, coarsest_cells=4,
+                            device="cpu")
+        lev = mg.levels[1]
+        whole = CachedAffineAssembler(lev.pop("asm").form, verify=False)
+        lev.pop("affine_asm")
+
+        def make_Ae(p):
+            Ae = whole.direct(None, {k: v for k, v in p.items()
+                                     if k != "_affine_basis"})
+            seen.append(Ae.shape[-1])
+            return Ae
+
+        lev["make_Ae"] = make_Ae
+        opts["precond_factory"] = ShellMGPrecond(mg)
+    model = _plate_model(16, 4, solver_opts=opts)
     pde = model.fea.states["disp_solid"].pde
-    pde._pf = shell_mg_precond_factory(mg)
-    try:
-        shard_model(model, mesh)
-    except NotImplementedError as e:
-        return str(e)
-    return None
+    if kind == "emf":
+        def whole_elmats(u, params, basis=None):
+            Ae = element_matrices(pde.form, u, params)
+            seen.append(Ae.shape[0])
+            return Ae.permute(1, 2, 0).contiguous()
+
+        pde.element_matrices_fn = whole_elmats
+    elif kind == "pc":
+        pde._pc = WholeJacobi(pde.form.space, pde.free_mask)
+    pde, spec = _split(model, mesh, split)
+    f, th, E, nu, rho = inputs_model(model.nel, model.nn, 2.0)
+    tt = torch.tensor(th, requires_grad=True)
+    out = model.evaluate(f, tt, E, nu, rho)
+    out.compliance.backward()
+    if kind == "pc":
+        seen = pde._pc.seen
+    ops = pde._assemble_ops(torch.zeros(pde.n_dofs, dtype=torch.float64),
+                            {k: v.detach() for k, v in model.fe_inputs(
+                                f, th, E, nu).items()})
+    return {"J": float(out.compliance), "u": out.disp_solid.detach().numpy(),
+            "g": tt.grad.numpy().copy(), "seen": seen,
+            "held_Ae": ops[0].shape[-1], "nel": model.nel,
+            "iters": [pde.last_info["forward"]["iters"],
+                      pde.last_info["adjoint"]["iters"]],
+            "all_reduce": None if spec is None else spec.n_all_reduce}
